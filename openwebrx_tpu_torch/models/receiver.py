@@ -1,0 +1,76 @@
+"""Per-client demodulator chain: Selector → demodulator → client audio.
+
+Counterpart of ``ClientDemodulatorChain`` and ``MODE_BANDPASS`` in
+``openwebrx_tpu/models/receiver.py``.  This slice ports the SSB modes
+(usb, lsb, cw, usbd); any other mode raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from openwebrx_tpu_torch.models.analog import Ssb
+from openwebrx_tpu_torch.models.clientaudio import ClientAudioChain
+from openwebrx_tpu_torch.models.selector import Selector
+from openwebrx_tpu_torch.runtime.chain import Chain
+
+# demodulator factory by mode string (the SSB modes of this slice)
+DEMOD_FACTORY = {
+    "lsb": Ssb,
+    "usb": Ssb,
+    "cw": Ssb,
+    "usbd": Ssb,
+}
+
+# default passbands per mode (Hz), as in the reference
+MODE_BANDPASS = {
+    "nfm": (-4000, 4000),
+    "wfm": (-75000, 75000),
+    "am": (-4000, 4000),
+    "sam": (-4000, 4000),
+    "lsb": (-3000, -300),
+    "usb": (300, 3000),
+    "cw": (400, 900),
+    "rawam": (-10000, 10000),
+    "rawsam": (-10000, 10000),
+    "usbd": (300, 12000),
+}
+
+
+class ClientDemodulatorChain(Chain):
+    """Selector → demodulator → client audio."""
+
+    def __init__(self, in_rate: float, audio_rate: float = 12000.0,
+                 mode: str = "usb", compression: str = "adpcm",
+                 name: str = "client_demod"):
+        if mode not in DEMOD_FACTORY:
+            raise NotImplementedError(
+                f"mode {mode!r} is not ported yet (this slice has "
+                f"{sorted(DEMOD_FACTORY)}; see ROADMAP.md Queue 1)")
+        self.in_rate = float(in_rate)
+        self.audio_rate = float(audio_rate)
+        self.mode = mode
+        self.compression = compression
+        demod = DEMOD_FACTORY[mode]()
+        if_rate = demod.get_if_rate(audio_rate)
+        self.selector = Selector(in_rate, if_rate)
+        self.selector.set_bandpass(*MODE_BANDPASS[mode])
+        self.demod = demod
+        audio_in = demod.fixed_audio_rate or if_rate
+        self.audio = ClientAudioChain(audio_in, audio_rate, compression)
+        super().__init__([self.selector, self.demod, self.audio], name=name)
+
+    # -- live controls ----------------------------------------------------
+    def set_frequency_offset(self, offset_hz: float):
+        self.selector.set_frequency_offset(offset_hz)
+
+    def set_bandpass(self, low_hz: float, high_hz: float):
+        self.selector.set_bandpass(low_hz, high_hz)
+
+    def set_squelch_level(self, level_db: float):
+        self.selector.set_squelch_level(level_db)
+
+    def set_mode(self, mode: str):
+        """Mode switch = rebuild the demod and audio legs."""
+        if mode == self.mode:
+            return
+        self.__init__(self.in_rate, self.audio_rate, mode, self.compression,
+                      name=self.name)

@@ -1,0 +1,226 @@
+"""IMA ADPCM codec for client audio (stride-parallel encode, host framing).
+
+Counterpart of ``openwebrx_tpu/ops/adpcm.py``.  The wire format matches the
+reference browser decoder: "SYNC" + int16le step index + int16le predictor,
+then ADPCM bytes (two nibbles per byte, low nibble first).
+
+The audio encoder restarts its adaptation at every STATE_STRIDE-byte stride
+from a reseed state that rides the wire in the sync header, so strides are
+independent: the 100-step recurrence runs with one lane per (channel,
+stride).  On a CUDA tensor that recurrence is the hand-written kernel
+``csrc/adpcm.cu`` (:func:`encode_strides`); the reseed states are computed
+here in PyTorch exactly as the reference computes them.  Bytes and stride
+states must equal the reference bit for bit on identical int16 input.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from openwebrx_tpu_torch import check_on, resolve_device
+from openwebrx_tpu_torch.kernels import ADPCM, stream_handle
+from openwebrx_tpu_torch.ops import wrap32
+
+IMA_INDEX_TABLE = np.array([-1, -1, -1, -1, 2, 4, 6, 8, -1, -1, -1, -1, 2, 4, 6, 8], np.int32)
+
+IMA_STEP_TABLE = np.array([
+    7, 8, 9, 10, 11, 12, 13, 14, 16, 17,
+    19, 21, 23, 25, 28, 31, 34, 37, 41, 45,
+    50, 55, 60, 66, 73, 80, 88, 97, 107, 118,
+    130, 143, 157, 173, 190, 209, 230, 253, 279, 307,
+    337, 371, 408, 449, 494, 544, 598, 658, 724, 796,
+    876, 963, 1060, 1166, 1282, 1411, 1552, 1707, 1878, 2066,
+    2272, 2499, 2749, 3024, 3327, 3660, 4026, 4428, 4871, 5358,
+    5894, 6484, 7132, 7845, 8630, 9493, 10442, 11487, 12635, 13899,
+    15289, 16818, 18500, 20350, 22385, 24623, 27086, 29794, 32767], np.int32)
+
+# bytes per independently encoded stride; also the sync-header interval
+STATE_STRIDE = 100
+SYNC_INTERVAL = STATE_STRIDE
+
+
+def adpcm_init(batch_shape=(), device="cuda"):
+    dev = resolve_device(device)
+    return (torch.zeros(tuple(batch_shape), dtype=torch.int32, device=dev),   # predictor
+            torch.zeros(tuple(batch_shape), dtype=torch.int32, device=dev))   # step index
+
+
+@functools.lru_cache(maxsize=None)
+def _step_table(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(IMA_STEP_TABLE, device=device).to(dtype)
+
+
+def pack_codec_state(pred: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(predictor, index) → packed int32 (pred << 16) | (idx & 0xFFFF)."""
+    return wrap32((pred.to(torch.int64) << 16) | (idx.to(torch.int64) & 0xFFFF))
+
+
+def unpack_codec_state(packed: int) -> tuple[int, int]:
+    """Packed int32 → (predictor, step index) on host."""
+    v = np.int32(packed)
+    return int(v >> 16), int(v & 0xFFFF)
+
+
+def _encode_nibble(predictor, index, sample, table):
+    """One IMA ADPCM encode step on int32 tensors (plain version)."""
+    step = table[index]
+    diff = sample - predictor
+    sign = (diff < 0).to(torch.int32)
+    diff = diff.abs()
+    nib = torch.zeros_like(index)
+    delta = step >> 3
+    for stepval, bit in ((step, 4), (step >> 1, 2), (step >> 2, 1)):
+        take = diff >= stepval
+        nib = torch.where(take, nib | bit, nib)
+        diff = torch.where(take, diff - stepval, diff)
+        delta = torch.where(take, delta + stepval, delta)
+    delta = torch.where(sign == 1, -delta, delta)
+    predictor = torch.clamp(predictor + delta, -32768, 32767)
+    nib = nib | (sign << 3)
+    # IMA_INDEX_TABLE[nib] = −1 for (nib & 7) < 4 else 2·(nib & 7) − 6
+    low = nib & 7
+    index = torch.clamp(index + torch.where(low < 4, -1, 2 * low - 6), 0, 88)
+    return predictor, index, nib
+
+
+def encode_strides_plain(samples: torch.Tensor, prev: torch.Tensor,
+                         idxs: torch.Tensor) -> torch.Tensor:
+    """Plain version of the recurrence: samples (L, 2·STRIDE) int16,
+    prev/idxs (L,) int32 → bytes (L, STRIDE) uint8."""
+    x = samples.to(torch.int32).reshape(-1, STATE_STRIDE, 2)
+    table = _step_table(torch.int32, samples.device)
+    pred, idx = prev, idxs
+    out = []
+    for i in range(STATE_STRIDE):
+        pred, idx, lo = _encode_nibble(pred, idx, x[:, i, 0], table)
+        pred, idx, hi = _encode_nibble(pred, idx, x[:, i, 1], table)
+        out.append((lo | (hi << 4)).to(torch.uint8))
+    return torch.stack(out, dim=-1)
+
+
+def encode_strides(samples: torch.Tensor, prev: torch.Tensor,
+                   idxs: torch.Tensor, device="cuda") -> torch.Tensor:
+    """The stride-parallel IMA recurrence, one lane per row: samples
+    (L, 2·STRIDE) int16, prev/idxs (L,) int32 start states → bytes
+    (L, STRIDE) uint8.  CUDA kernel on a CUDA device, plain version on the
+    CPU; the tensors must lie on ``device``."""
+    dev = resolve_device(device)
+    check_on(dev, samples, prev, idxs)
+    lanes = samples.shape[0]
+    if (samples.dtype != torch.int16 or samples.dim() != 2
+            or samples.shape[1] != 2 * STATE_STRIDE):
+        raise ValueError(f"samples must be (L, {2 * STATE_STRIDE}) int16, "
+                         f"got {tuple(samples.shape)} {samples.dtype}")
+    for name, t in (("prev", prev), ("idxs", idxs)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (lanes,):
+            raise ValueError(f"{name} must be ({lanes},) int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if dev.type == "cpu":
+        return encode_strides_plain(samples, prev, idxs)
+    out = torch.empty((lanes, STATE_STRIDE), dtype=torch.uint8, device=dev)
+    if lanes == 0:
+        return out
+    if not (samples.is_contiguous() and prev.is_contiguous()
+            and idxs.is_contiguous() and samples.data_ptr() % 4 == 0):
+        raise ValueError("encode_strides kernel needs contiguous, 4-byte "
+                         "aligned inputs")
+    ADPCM.launch(samples.data_ptr(), prev.data_ptr(), idxs.data_ptr(),
+                 out.data_ptr(), lanes, stream_handle(dev))
+    return out
+
+
+def _estimate_index(xs: torch.Tensor) -> torch.Tensor:
+    """Per-stride step-index estimate: the table index whose step best
+    tracks the stride's mean |Δx|.  The sum of |Δx| is an exact integer
+    (below 2²⁴), divided once in float32 as the reference's mean does."""
+    total = torch.diff(xs, dim=-1).abs().sum(dim=-1)
+    md = total.to(torch.float32) / float(xs.shape[-1] - 1)
+    table = _step_table(torch.float32, xs.device)
+    return torch.clamp(torch.searchsorted(table, md), 0, 88).to(torch.int32)
+
+
+def adpcm_encode(state, samples: torch.Tensor):
+    """Stride-parallel IMA encode for the audio path: int16 samples
+    (..., 2N) with N % STATE_STRIDE == 0 → (new_state, (bytes (..., N)
+    uint8, stride (..., N/STATE_STRIDE) int32)).
+
+    stride[..., i] is the packed start state of stride i+1; stride 0 starts
+    from the carried block state."""
+    batch = samples.shape[:-1]
+    n = samples.shape[-1] // 2                        # bytes this block
+    s = n // STATE_STRIDE                             # strides this block
+    x16 = samples.reshape(*batch, s, 2 * STATE_STRIDE)
+    xs = x16.to(torch.int32)
+    pred0, idx0 = state
+    # start states per stride: the raw sample before the stride, and the
+    # index estimated from the stride BEFORE it
+    prev = torch.cat([pred0[..., None], xs[..., :-1, -1]], dim=-1)
+    est = _estimate_index(xs)
+    idxs = torch.cat([idx0[..., None], est[..., :-1]], dim=-1)
+    bytes_ = encode_strides(x16.reshape(-1, 2 * STATE_STRIDE).contiguous(),
+                            prev.reshape(-1).contiguous(),
+                            idxs.reshape(-1).contiguous(),
+                            device=samples.device)
+    bytes_ = bytes_.reshape(*batch, n)
+    stride = pack_codec_state(xs[..., :, -1] & 0xFFFF, est)
+    new_state = (xs[..., -1, -1], est[..., -1])
+    return new_state, (bytes_, stride)
+
+
+def adpcm_decode_np(data: bytes, state=(0, 0)):
+    """Numpy reference decoder (host side), mirroring the browser's
+    decodeNibble."""
+    predictor, index = state
+    out = np.empty(len(data) * 2, np.int16)
+    for i, byte in enumerate(data):
+        for k, nib in enumerate((byte & 0x0F, byte >> 4)):
+            step = IMA_STEP_TABLE[index]
+            diff = step >> 3
+            if nib & 1:
+                diff += step >> 2
+            if nib & 2:
+                diff += step >> 1
+            if nib & 4:
+                diff += step
+            if nib & 8:
+                diff = -diff
+            predictor = int(np.clip(predictor + diff, -32768, 32767))
+            index = int(np.clip(index + IMA_INDEX_TABLE[nib], 0, 88))
+            out[i * 2 + k] = predictor
+    return out, (predictor, index)
+
+
+class SyncFramer:
+    """Host-side sync framing: splice "SYNC"+state headers into the encoded
+    byte stream every SYNC_INTERVAL bytes, reseeding the client decoder.
+    Cuts land only on STATE_STRIDE multiples, which the exported stride
+    states cover exactly."""
+
+    def __init__(self):
+        self.since_sync = SYNC_INTERVAL  # ⇒ emit a sync header immediately
+        self._carry = 0                  # packed state at end of prev block
+
+    def frame(self, bytes_: np.ndarray, stride_states: np.ndarray) -> bytes:
+        """bytes_: this block's encoded bytes (multiple of STATE_STRIDE);
+        stride_states: packed int32 reseed state at each STATE_STRIDE
+        boundary (the start state of the following stride)."""
+        out = bytearray()
+        n = len(bytes_)
+        pos = 0
+        while pos < n:
+            if self.since_sync >= SYNC_INTERVAL:
+                packed = self._carry if pos == 0 else int(
+                    stride_states[pos // STATE_STRIDE - 1])
+                pred, idx = unpack_codec_state(packed)
+                out += b"SYNC" + np.array([idx, pred], "<i2").tobytes()
+                self.since_sync = 0
+            take = min(n - pos, SYNC_INTERVAL - self.since_sync)
+            out += bytes(bytes_[pos:pos + take])
+            pos += take
+            self.since_sync += take
+        if n:
+            self._carry = int(stride_states[-1])
+        return bytes(out)

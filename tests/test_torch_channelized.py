@@ -1,0 +1,273 @@
+"""The port's ChannelizedBank against the JAX bank, and the port's guards.
+
+The M=16 banks of both packages get the same numpy IQ blocks.  int16 audio
+and squelch powers must agree within the tolerances stated below; ADPCM
+bytes may differ where float drift upstream moved a sample by one LSB, so
+the decoded audio is compared instead.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+
+from openwebrx_tpu.ops import adpcm as jadpcm
+from openwebrx_tpu.runtime.chain import _unpack_leaf
+from openwebrx_tpu.runtime.channelized import ChannelizedBank as JaxBank
+from openwebrx_tpu_torch.from_jax import bank_state_from_numpy
+from openwebrx_tpu_torch.runtime.channelized import ChannelizedBank
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+FS, M = 1.92e6, 16
+OFFSETS = (250000.0, -430000.0, 610000.0)
+F_AUDIO = (1100.0, 700.0, 1500.0)
+POWER_KEY = "selector.squelch.power_db"
+# int16 audio: the port and the reference differ only in fp32 summation
+# order and sincos/FFT rounding (1 LSB measured at these sizes)
+AUDIO_LSB = 2
+# power_db: fp32 mean of |x|² over one window, in dB
+POWER_DB_ATOL = 1e-3
+
+
+def tone_snr(audio, f_tone, fs_audio):
+    spec = np.abs(np.fft.rfft(audio * np.hanning(len(audio)))) ** 2
+    freqs = np.fft.rfftfreq(len(audio), 1 / fs_audio)
+    band = (freqs > f_tone * 0.9) & (freqs < f_tone * 1.1)
+    rest = (freqs > 50) & ~band
+    return 10 * np.log10(spec[band].sum() / spec[rest].sum())
+
+
+def _iq(block, nblocks, seed=0):
+    rng = np.random.default_rng(seed)
+    n = np.arange(block * nblocks)
+    x = sum(0.4 * np.exp(2j * np.pi * (o + fa) / FS * n)
+            for o, fa in zip(OFFSETS, F_AUDIO))
+    x = x + 0.05 * (rng.standard_normal(len(n)) + 1j * rng.standard_normal(len(n)))
+    return np.split(x.astype(np.complex64), nblocks)
+
+
+def _banks(compression, capacity=None):
+    kw = dict(mode="usb", compression=compression, target_seconds=0.05,
+              capacity=capacity)
+    return JaxBank(FS, M, **kw), ChannelizedBank(FS, M, device="cpu", **kw)
+
+
+def _decode(blocks):
+    """Per-slot ADPCM bytes + stride reseeds over blocks → int16 audio."""
+    out, state = [], (0, 0)
+    for data, strides in blocks:
+        for k in range(len(strides)):
+            chunk = bytes(data[k * 100:(k + 1) * 100])
+            d, _ = jadpcm.adpcm_decode_np(chunk, state)
+            out.append(d)
+            state = jadpcm.unpack_codec_state(int(strides[k]))
+    return np.concatenate(out).astype(np.int32)
+
+
+def _jax_state_numpy(bank):
+    """The JAX bank's (tail, chain_state) with complex leaves as complex64."""
+    return jax.tree.map(lambda v, c: np.asarray(_unpack_leaf(v, c)),
+                        bank.state, bank._s_mask)
+
+
+class TestBankParity:
+    @pytest.mark.parametrize("capacity", [None, 4])
+    def test_int16_audio_with_retune(self, capacity):
+        jb, tb = _banks("none", capacity)
+        slots = [(jb.assign(o, -150.0), tb.assign(o, -150.0)) for o in OFFSETS]
+        assert all(a == b for a, b in slots)
+        jb.set_squelch(slots[1][0], -40.0)
+        tb.set_squelch(slots[1][1], -40.0)
+        for i, blk in enumerate(_iq(jb.block, 5)):
+            if i == 2:     # retune mid-stream; dense mode moves the slot
+                s_j = jb.retune(slots[0][0], 370000.0)
+                s_t = tb.retune(slots[0][1], 370000.0)
+                assert s_j == s_t
+                jb.set_nr(s_j, -10.0)
+                tb.set_nr(s_t, -10.0)
+            yj, aj = jb.process(blk)
+            yt, at = tb.process(blk)
+            assert yt.dtype == np.int16 and yt.shape == np.asarray(yj).shape
+            d = np.abs(yt.astype(np.int32) - np.asarray(yj).astype(np.int32))
+            assert d.max() <= AUDIO_LSB, (i, d.max())
+            assert set(at) == set(aj) == {POWER_KEY}
+            assert at[POWER_KEY].dtype == np.float32
+            np.testing.assert_allclose(at[POWER_KEY], aj[POWER_KEY],
+                                       rtol=0, atol=POWER_DB_ATOL)
+
+    @pytest.mark.parametrize("mode", ["lsb", "cw"])
+    def test_other_ssb_modes_and_bandpass(self, mode):
+        kw = dict(mode=mode, compression="none", target_seconds=0.05)
+        jb, tb = JaxBank(FS, M, **kw), ChannelizedBank(FS, M, device="cpu", **kw)
+        for o in OFFSETS:
+            assert jb.assign(o) == tb.assign(o)
+        s = jb.channel_for(OFFSETS[2])[0]
+        for i, blk in enumerate(_iq(jb.block, 3, seed=4)):
+            if i == 1:     # a listener drags its passband
+                jb.set_bandpass(s, -2500.0, -200.0)
+                tb.set_bandpass(s, -2500.0, -200.0)
+            yj, aj = jb.process(blk)
+            yt, at = tb.process(blk)
+            d = np.abs(yt.astype(np.int32) - np.asarray(yj).astype(np.int32))
+            assert d.max() <= AUDIO_LSB, (i, d.max())
+            np.testing.assert_allclose(at[POWER_KEY], aj[POWER_KEY],
+                                       rtol=0, atol=POWER_DB_ATOL)
+
+    def test_adpcm_decoded_audio(self):
+        jb, tb = _banks("adpcm")
+        for o in OFFSETS:
+            jb.assign(o)
+            tb.assign(o)
+        jout, tout = [], []
+        for blk in _iq(jb.block, 4, seed=1):
+            (jbytes, jstride), _ = jb.process(blk)
+            (tbytes, tstride), _ = tb.process(blk)
+            assert tbytes.dtype == np.uint8 and tbytes.shape == (M, 300)
+            assert tstride.dtype == np.int32 and tstride.shape == (M, 3)
+            jout.append((np.asarray(jbytes), np.asarray(jstride)))
+            tout.append((tbytes, tstride))
+        same = np.mean([np.mean(a[0] == b[0]) for a, b in zip(jout, tout)])
+        assert same > 0.99
+        for k in range(M):
+            a = _decode([(b[k], s[k]) for b, s in tout])
+            b = _decode([(b[k], s[k]) for b, s in jout])
+            # a one-LSB input difference can flip a nibble; the decoder
+            # then drifts until the next stride reseed (≤ 200 samples)
+            err = np.sqrt(np.mean((a - b) ** 2))
+            ref = np.sqrt(np.mean(b.astype(np.float64) ** 2)) + 1.0
+            assert err / ref < 0.05, (k, err, ref)
+
+    def test_state_handover(self):
+        """JAX bank runs 2 blocks, hands its state over, both continue."""
+        jb, tb = _banks("none", capacity=4)
+        for o in OFFSETS:
+            jb.assign(o)
+            tb.assign(o)
+        blocks = _iq(jb.block, 4, seed=2)
+        for blk in blocks[:2]:
+            jb.process(blk)
+        tb.state = bank_state_from_numpy(_jax_state_numpy(jb), "cpu")
+        for blk in blocks[2:]:
+            yj, aj = jb.process(blk)
+            yt, at = tb.process(blk)
+            d = np.abs(yt.astype(np.int32) - np.asarray(yj).astype(np.int32))
+            assert d.max() <= AUDIO_LSB
+            np.testing.assert_allclose(at[POWER_KEY], aj[POWER_KEY],
+                                       rtol=0, atol=POWER_DB_ATOL)
+
+    def test_state_handover_rejects_foreign_dtypes(self):
+        with pytest.raises(TypeError):
+            bank_state_from_numpy((np.zeros(3, np.complex128), ()), "cpu")
+
+
+class TestPortBank:
+    def test_two_usb_channels(self):
+        bank = ChannelizedBank(FS, M, mode="usb", compression="none",
+                               target_seconds=0.05, device="cpu")
+        offs, f_audio = [250000.0, -430000.0], [1100.0, 700.0]
+        slots = [bank.assign(o) for o in offs]
+        assert len(set(slots)) == 2
+        n = np.arange(bank.block * 6)
+        x = sum(0.4 * np.exp(2j * np.pi * (o + fa) / FS * n)
+                for o, fa in zip(offs, f_audio)).astype(np.complex64)
+        audio = np.concatenate([bank.process(blk)[0] for blk in np.split(x, 6)],
+                               axis=-1).astype(np.float32) / 32767
+        settled = audio[:, audio.shape[1] // 2:]
+        for slot, fa in zip(slots, f_audio):
+            assert tone_snr(settled[slot], fa, 12000.0) > 15
+
+    def test_channel_mapping_and_controls(self):
+        bank = ChannelizedBank(FS, M, mode="usb", target_seconds=0.05,
+                               capacity=2, device="cpu")
+        k, fine = bank.channel_for(250000.0)
+        assert k == 2 and abs(fine - 10000.0) < 1e-6
+        assert bank.fits(250000.0, 300, 3000)
+        assert not bank.fits(250000.0 + 45000.0, 300, 3000)
+        s0 = bank.assign(250000.0)
+        s1 = bank.assign(250000.0)
+        assert (s0, s1) == (0, 1) and not bank.has_free_slot()
+        with pytest.raises(ValueError):
+            bank.assign(0.0)
+        bank.release(s1)
+        assert bank.n_active == 1 and bank.channel_in_use(2)
+
+    def test_streaming_surface(self):
+        """feed_dispatch with a device chunk of half the bank block and
+        delivery batching returns what process() returns."""
+        kw = dict(mode="usb", compression="adpcm", device="cpu")
+        ref = ChannelizedBank(FS, M, target_seconds=0.05, **kw)
+        bank = ChannelizedBank(FS, M, block=ref.block // 2, delivery_stride=2, **kw)
+        assert bank.block == ref.block and bank.chunk_ratio == 2
+        for b in (ref, bank):
+            b.assign(250000.0)
+        blocks = _iq(ref.block, 2, seed=3)
+        want = [ref.process(b) for b in blocks]
+        got = None
+        for blk in blocks:
+            for half in np.split(bank.pack_input(blk), 2):
+                r = bank.feed_dispatch(half)
+                if r is not None:
+                    got = bank.fetch_many(*r)
+        assert got is not None and len(got) == 2
+        for (yg, ag), (yw, aw) in zip(got, want):
+            for a, b in zip(yg, yw):
+                np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(ag[POWER_KEY], aw[POWER_KEY])
+
+    def test_wrong_block_size_raises(self):
+        bank = ChannelizedBank(FS, M, target_seconds=0.05, device="cpu")
+        with pytest.raises(ValueError):
+            bank.process(np.zeros(bank.block - M, np.complex64))
+
+    def test_unported_mode_raises(self):
+        with pytest.raises(NotImplementedError):
+            ChannelizedBank(FS, M, mode="nfm", device="cpu")
+
+
+class TestGuards:
+    def test_no_jax_imports(self):
+        """No module of the port, nor chip_smoke.py, imports jax or the JAX
+        package (an AST scan: this process has jax loaded already)."""
+        files = sorted((REPO / "openwebrx_tpu_torch").rglob("*.py"))
+        files.append(REPO / "chip_smoke.py")
+        assert len(files) > 20
+        bad = []
+        for f in files:
+            for node in ast.walk(ast.parse(f.read_text())):
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    names = [node.module]
+                for n in names:
+                    root = n.split(".")[0]
+                    if root in ("jax", "jaxlib", "openwebrx_tpu"):
+                        bad.append(f"{f.relative_to(REPO)}: {n}")
+        assert not bad, bad
+
+    def test_bank_default_device_needs_a_card(self):
+        """Without device= the bank targets CUDA; without a card it raises."""
+        import torch
+        if torch.cuda.is_available():
+            pytest.skip("a card is present: the default device is valid")
+        with pytest.raises(RuntimeError):
+            ChannelizedBank(FS, M, target_seconds=0.05)
+
+    @pytest.mark.parametrize("alone", [False, True])
+    def test_chip_smoke_fails_without_card_or_repo(self, tmp_path, alone):
+        import torch
+        if torch.cuda.is_available() and not alone:
+            pytest.skip("a card is present: chip_smoke.py would run")
+        cwd = REPO
+        if alone:
+            (tmp_path / "chip_smoke.py").write_bytes(
+                (REPO / "chip_smoke.py").read_bytes())
+            cwd = tmp_path
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
