@@ -8,17 +8,24 @@ Run from the root of a checkout on a machine with a CUDA card::
 Phases (any failure raises and the script exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit, PyTorch's device name;
-2. build both CUDA kernels from ``openwebrx_tpu_torch/csrc`` (one ``nvcc``
-   per source, all started together);
+2. build the four CUDA kernels from ``openwebrx_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all started together);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the 1024-channel bank gives it: the polyphase fold within a stated
-   tolerance, the ADPCM encoder byte-identical;
-4. a small bank (M=64) on the card against the same bank on the CPU (plain
-   versions), on the same input;
-5. the main path: ``ChannelizedBank(49.152e6, 1024, usb, adpcm)`` with one
-   dial per channel, fed seeded device-resident IQ, every result fetched to
-   host numpy; launch counters must equal the blocks fed, outputs must be
-   finite and of the right shape, and a tuned USB tone must come out clean;
+   the full-width banks give it: the polyphase fold and the first-order IIR
+   within stated tolerances, the ADPCM encoder byte-identical, the AGC's
+   final gain and hang counters identical and its audio within a stated
+   tolerance;
+4. small banks (M=64) on the card against the same banks on the CPU (plain
+   versions), on the same input, in every mode: usb, nfm, am, rawam, sam
+   and wfm (gathered, at 384 kHz slices);
+5. the paths at full width, each fed seeded device-resident IQ with every
+   result fetched to host numpy, each with its kernels' launch counters set
+   to 0 just before it and checked against the expected counts just after:
+   the 1024-channel USB bank (BASELINE config #5), the 1024-channel NFM
+   bank, the 2048-channel AM bank, the 128-channel WFM bank (0.2 s blocks)
+   and BASELINE config #1 (2.4 MS/s NFM through ``build_program``).  Each
+   checks its outputs' shapes and dtypes, decodes its tones (≥ 15 dB SNR)
+   and logs ms/block, MS/s, its real-time multiple and peak memory;
 6. kernel device times (CUDA events, launches queued ahead of the device)
    beside their bounds, the plain versions and, for the fold, one PyTorch
    call computing the same function.
@@ -40,13 +47,20 @@ import numpy as np
 
 FS = 49.152e6          # BASELINE config #5: 49.152 MS/s wideband input
 M = 1024               # 1024 PFB channels at 48 kHz
+CFG1_FS = 2.4e6        # BASELINE config #1: 2.4 MS/s, one NFM listener
+CFG1_OFFSET = 145000.0
 WARMUP_BLOCKS = 3
 TIMED_BLOCKS = 20
-TONE_CHANNELS = (100, 517, 900)     # dials i (of the 1024) given a USB tone
+TONE_CHANNELS = (100, 517, 900)     # dials i (of the 1024) given a tone
 TONE_AUDIO_HZ = 1000.0
+FM_DEVIATION = {"nfm": 3000.0, "wfm": 75000.0}
 TONE_SNR_MIN_DB = 15.0              # as tests/test_channelized_bank.py
 FOLD_RTOL = 1e-5       # × max|v|: fp32 sums of P=16 terms, FMA vs mul+add
+IIR_RTOL = 1e-5        # × max|y|: warp-scan order vs the plain doubling scan
+AGC_RTOL = 0.0         # same float32 operations in the same order
 SMALL_BANK_LSB = 4     # int16 audio, card vs CPU: cuFFT/cuDNN sum orders
+SAM_RMS_LSB = 0.5      # sync AM: rms over a carrier channel (see phase 4)
+RDS_RTOL = 1e-4        # × max|rds|: WFM's RDS aux, card vs CPU
 # NVIDIA H100 SXM data sheet (700 W): HBM rate and non-tensor fp32 rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -119,14 +133,97 @@ def decode_channel(blocks, adpcm):
     return np.concatenate(out)
 
 
+def modulated(torch, n, fs, fc, kind, amp):
+    """A carrier at fc (Hz) with a TONE_AUDIO_HZ tone on it, complex64:
+    ``usb`` a tone fc + f above the dial, ``am`` 60 % AM, ``nfm``/``wfm``
+    FM at that mode's deviation.  n: float64 sample indices."""
+    fa = TONE_AUDIO_HZ
+    t = n / fs
+    two_pi = 2 * np.pi
+    amp_t = torch.full_like(t, amp)
+    if kind == "usb":
+        ph = torch.remainder(n * ((fc + fa) / fs), 1.0) * two_pi
+    elif kind == "am":
+        ph = torch.remainder(n * (fc / fs), 1.0) * two_pi
+        amp_t = amp * (1 + 0.6 * torch.sin(two_pi * fa * t))
+    else:
+        dev = FM_DEVIATION[kind]
+        ph = (torch.remainder(n * (fc / fs), 1.0) * two_pi
+              + (dev / fa) * (1 - torch.cos(two_pi * fa * t)))
+    return torch.polar(amp_t, ph).to(torch.complex64)
+
+
+def seeded_blocks(torch, gen, dev, fs, block, n_blocks, carriers, kind,
+                  noise=0.2, amp=0.4):
+    """Seeded noise plus one modulated carrier at each frequency, made on
+    the device before a run (set-up), phase-continuous across blocks."""
+    out = []
+    for b in range(n_blocks):
+        n = torch.arange(block, device=dev, dtype=torch.float64) + b * block
+        x = torch.complex(torch.randn(block, generator=gen, device=dev),
+                          torch.randn(block, generator=gen, device=dev)) * noise
+        for fc in carriers:
+            x = x + modulated(torch, n, fs, fc, kind, amp)
+        out.append(x.contiguous())
+    torch.cuda.synchronize()
+    return out
+
+
+def drive(label, dispatch, fetch, blocks, kernels, torch, dev):
+    """Run one path: every kernel count set to 0 just before it and read
+    just after; the next block is dispatched before the previous one is
+    fetched; blocks after WARMUP_BLOCKS are timed."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.ALL:
+        k.launches = 0
+    results, pending, t_start = [], None, None
+    for b, x in enumerate(blocks):
+        if b == WARMUP_BLOCKS:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        nxt = dispatch(x)
+        if pending is not None:
+            results.append(fetch(*pending))
+        pending = nxt
+    results.append(fetch(*pending))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = {k.source.name: k.launches for k in kernels.ALL}
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    log(f"[{label}] launches: {launches} (blocks fed: {len(blocks)})")
+    check(len(results) == len(blocks), f"{label}: missing results")
+    return results, wall, launches, peak_mib
+
+
+def report(label, smi, wall, n_timed, block, fs, peak_mib):
+    msps = n_timed * block / wall / 1e6
+    log(f"[{label}] {smi}: {n_timed} blocks of {block} samples in "
+        f"{wall * 1e3:.3f} ms (results fetched to host every block): "
+        f"{msps:.3f} MS/s = {msps / (fs / 1e6):.3f}x real time; "
+        f"{wall / n_timed * 1e3:.3f} ms/block; peak device memory "
+        f"{peak_mib:.1f} MiB")
+    return {"ms_per_block": wall / n_timed * 1e3, "msps": msps,
+            "realtime_x": msps / (fs / 1e6), "peak_mib": peak_mib}
+
+
+def check_launches(label, launches, expected):
+    for name, want in expected.items():
+        check(launches[name] == want,
+              f"{label}: {name} launched {launches[name]} times, expected {want}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from openwebrx_tpu_torch import kernels
-    from openwebrx_tpu_torch.ops import adpcm, channelizer
+    from openwebrx_tpu_torch.models.receiver import (
+        ClientDemodulatorChain, build_program)
+    from openwebrx_tpu_torch.ops import adpcm, agc, channelizer, iir
     from openwebrx_tpu_torch.ops.fold import polyphase_fold, polyphase_fold_plain
+    from openwebrx_tpu_torch.runtime.chain import tree_map
     from openwebrx_tpu_torch.runtime.channelized import ChannelizedBank
 
     dev = torch.device("cuda", 0)
@@ -205,98 +302,208 @@ def main() -> int:
         f"new_state identical = {same}")
     check(same, "adpcm_encode on the card differs from the CPU plain path")
 
-    # -- 4. a small bank on the card against the CPU plain path --------------
-    small = {}
-    for where in ("cuda", "cpu"):
-        sb = ChannelizedBank(3.072e6, 64, mode="usb", compression="none",
-                             target_seconds=0.05, device=where)
-        for i in range(64):
-            sb.assign(float((i - 32) * 3.072e6 / 64))
-        rng = np.random.default_rng(5)
-        outs = []
-        for _ in range(4):
-            x = ((rng.standard_normal(sb.block) + 1j * rng.standard_normal(sb.block))
-                 * 0.2).astype(np.complex64)
-            y, aux = sb.process(x)
-            outs.append(y)
-        small[where] = np.concatenate(outs, axis=-1).astype(np.int32)
-    small_diff = int(np.abs(small["cuda"] - small["cpu"]).max())
-    log(f"[check] small bank M=64 int16 audio, card vs CPU: max diff "
-        f"{small_diff} LSB (tolerance {SMALL_BANK_LSB}), mean "
-        f"{np.abs(small['cuda'] - small['cpu']).mean():.4f}")
-    check(small_diff <= SMALL_BANK_LSB, "small bank: card and CPU disagree")
+    # first-order IIR at the NFM bank's de-emphasis: (1024, 2400) at 48 kHz
+    deemph = iir.deemphasis_coeffs(48000.0, 150e-6)
+    iir_x = torch.randn(M, 2400, generator=gen, device=dev) * 0.3
+    iir_st = (torch.randn(M, generator=gen, device=dev),
+              torch.randn(M, generator=gen, device=dev))
+    (ix_k, iy_k), y_k = iir.first_order_apply(iir_st, *deemph, iir_x, device=dev)
+    (ix_p, iy_p), y_p = iir.first_order_apply_plain(iir_st, *deemph, iir_x)
+    torch.cuda.synchronize()
+    iir_err = max(float((y_k - y_p).abs().max()), float((iy_k - iy_p).abs().max()))
+    iir_tol = IIR_RTOL * float(y_p.abs().max())
+    log(f"[check] iir x{tuple(iir_x.shape)}: max_abs_err {iir_err:.3e} "
+        f"(tolerance {iir_tol:.3e}); x state identical = {torch.equal(ix_k, ix_p)}")
+    check(iir_err <= iir_tol and torch.equal(ix_k, ix_p),
+          f"IIR kernel disagrees: {iir_err} > {iir_tol}")
 
-    # -- 5. the main path -----------------------------------------------------
-    bank = ChannelizedBank(FS, M, mode="usb", compression="adpcm",
-                           target_seconds=0.05, device=dev)
-    check(bank.block == block, f"bank block {bank.block} != {block}")
-    for i in range(M):
-        bank.assign(float((i - M // 2) * FS / M))
+    # AGC at the NFM bank's shape: (1024, 2400), FAST, 48 chunks of 50,
+    # channel levels spread over 80 dB and random start states
+    agc_x = (torch.randn(M, 2400, generator=gen, device=dev)
+             * 10.0 ** (torch.rand(M, 1, generator=gen, device=dev) * 4 - 3))
+    agc_st = (torch.rand(M, generator=gen, device=dev) * 100 + 0.01,
+              torch.randint(0, 9, (M,), generator=gen, device=dev,
+                            dtype=torch.int32))
+    (g_k, h_k), a_k = agc.agc_apply(agc_st, agc.FAST, agc_x, 50, device=dev)
+    (g_p, h_p), a_p = agc.agc_apply_plain(agc_st, agc.FAST, agc_x, 50)
+    torch.cuda.synchronize()
+    state_same = torch.equal(g_k, g_p) and torch.equal(h_k, h_p)
+    agc_err = float((a_k - a_p).abs().max())
+    agc_tol = AGC_RTOL * float(a_p.abs().max())
+    log(f"[check] agc x{tuple(agc_x.shape)} FAST: gain and hang identical = "
+        f"{state_same}; audio max_abs_err {agc_err:.3e} (tolerance {agc_tol:.3e})")
+    check(state_same, "AGC kernel gain or hang differs from the plain version")
+    check(agc_err <= agc_tol, f"AGC kernel audio disagrees: {agc_err} > {agc_tol}")
+
+    # -- 4. small banks on the card against the CPU plain path ---------------
+    # Every mode; usb and am are compared from block 0 on.  In the other
+    # modes the card bank takes the CPU bank's state after block 0, whose
+    # difference is only logged: at stream start the FFT bandpass's outputs
+    # are ~1e-7 with ~1e-8 of absolute rounding noise, so the FM
+    # discriminator's first samples are noise in any two float32
+    # implementations, and an AGC without a DC blocker (rawam) or a carrier
+    # estimate (sam) turns that noise into different startup gains
+    small_modes = {                  # mode: (fs, m, capacity, audio_rate)
+        "usb": (3.072e6, 64, None, 12000.0), "nfm": (3.072e6, 64, None, 12000.0),
+        "am": (3.072e6, 64, None, 12000.0), "rawam": (3.072e6, 64, None, 12000.0),
+        "sam": (3.072e6, 64, None, 12000.0), "wfm": (24.576e6, 64, 2, 48000.0)}
+    carrier_slots = (5, 20, 40)
+    for mode, (sfs, sm, scap, srate) in small_modes.items():
+        dial_idx = range(sm) if scap is None else (20, 40)
+        banks = {}
+        for where in ("cpu", "cuda"):
+            sb = ChannelizedBank(sfs, sm, mode=mode, compression="none",
+                                 target_seconds=0.05, capacity=scap,
+                                 audio_rate=srate, device=where)
+            for i in dial_idx:
+                sb.assign(float((i - sm // 2) * sfs / sm))
+            banks[where] = sb
+        carriers = [float((i - sm // 2) * sfs / sm)
+                    for i in (carrier_slots if scap is None else (20, 40))]
+        if mode == "usb":            # as in earlier runs: noise only
+            carriers = []
+        kind_of = {"usb": "usb", "nfm": "nfm", "wfm": "wfm"}.get(mode, "am")
+        blocks = seeded_blocks(torch, gen, dev, sfs, banks["cpu"].block, 4,
+                               carriers, kind_of, noise=0.1)
+        handover = mode not in ("usb", "am")
+        outs = {"cpu": [], "cuda": []}
+        rds_out = {"cpu": [], "cuda": []}
+        for b, x in enumerate(blocks):
+            if b == 1 and handover:
+                banks["cuda"].state = tree_map(lambda s: s.to(dev),
+                                               banks["cpu"].state)
+            ys = {}
+            for where in ("cpu", "cuda"):
+                y, aux = banks[where].process(x if where == "cuda" else x.cpu())
+                ys[where] = y
+                if b >= (1 if handover else 0):
+                    outs[where].append(y)
+                if mode == "wfm":
+                    rds = aux["wfm.rds_tap.rds"]
+                    check(rds.dtype == np.complex64 and np.isfinite(rds).all()
+                          and rds.shape == (2, banks[where].channel_block * 250 // 384 // 16),
+                          f"small wfm rds aux {rds.shape} {rds.dtype}")
+                    if b >= 1:
+                        rds_out[where].append(rds)
+            if b == 0 and handover:
+                d0 = np.abs(ys["cuda"].astype(np.int32) - ys["cpu"].astype(np.int32))
+                log(f"[check] small bank {mode}: block 0 (before the state "
+                    f"handover) card vs CPU max diff {int(d0.max())} LSB, not checked")
+        a = np.concatenate(outs["cuda"], axis=-1).astype(np.float64)
+        c = np.concatenate(outs["cpu"], axis=-1).astype(np.float64)
+        diff = np.abs(a - c)
+        if mode == "sam":
+            # the block-wise carrier estimate (atan2 of a sum of rotations)
+            # rounds differently at a few samples: rms over carrier channels
+            rows = [banks["cpu"].channel_for(f)[0] for f in carriers]
+            rms = np.sqrt(np.mean(diff[rows] ** 2, axis=-1))
+            log(f"[check] small bank {mode} M={sm}: card vs CPU rms diff on "
+                f"carrier channels {np.round(rms, 4).tolist()} LSB (tolerance "
+                f"{SAM_RMS_LSB}); max {int(diff.max())} LSB")
+            check(rms.max() <= SAM_RMS_LSB, f"small {mode} bank: card and CPU disagree")
+        else:
+            log(f"[check] small bank {mode} M={sm}{'' if scap is None else f' capacity {scap}'}"
+                f": int16 audio card vs CPU max diff {int(diff.max())} LSB "
+                f"(tolerance {SMALL_BANK_LSB}), mean {diff.mean():.4f}")
+            check(diff.max() <= SMALL_BANK_LSB, f"small {mode} bank: card and CPU disagree")
+        if mode == "wfm":
+            # the RDS baseband (57 kHz mix, 16-fold FIR decimation) on the
+            # card against the CPU, as the CPU tests hold it against JAX
+            rc = np.concatenate(rds_out["cpu"], axis=-1)
+            rds_err = float(np.abs(np.concatenate(rds_out["cuda"], axis=-1) - rc).max())
+            rds_tol = RDS_RTOL * float(np.abs(rc).max())
+            log(f"[check] small bank wfm rds aux card vs CPU: max_abs_err "
+                f"{rds_err:.3e} (tolerance {rds_tol:.3e})")
+            check(rds_err <= rds_tol, "small wfm bank: card and CPU rds disagree")
+
+    # -- 5. the paths at full width ------------------------------------------
+    paths = {}
+    launches_by_path = {}
     n_blocks = WARMUP_BLOCKS + TIMED_BLOCKS
-    # seeded device-resident IQ: noise plus a USB tone in a few channels,
-    # phase-continuous across blocks (made before the run: set-up)
-    iq = []
-    for b in range(n_blocks):
-        n = (torch.arange(block, device=dev, dtype=torch.float64)
-             + b * block)
-        x = torch.complex(torch.randn(block, generator=gen, device=dev),
-                          torch.randn(block, generator=gen, device=dev)) * 0.2
-        for i in TONE_CHANNELS:
-            f_hz = (i - M // 2) * FS / M + TONE_AUDIO_HZ
-            ph = torch.remainder(n * (f_hz / FS), 1.0) * (2 * np.pi)
-            x = x + (0.4 * torch.polar(torch.ones_like(ph), ph)).to(torch.complex64)
-        iq.append(x.contiguous())
-    torch.cuda.synchronize()
+    bank_paths = [
+        # label, mode, m, audio rate, blocks timed, expected launches/block
+        ("usb", "usb", 1024, 12000.0, TIMED_BLOCKS,
+         {"fold.cu": 1, "adpcm.cu": 1, "iir.cu": 0, "agc.cu": 1}),
+        ("nfm", "nfm", 1024, 12000.0, TIMED_BLOCKS,
+         {"fold.cu": 1, "adpcm.cu": 1, "iir.cu": 1, "agc.cu": 1}),
+        ("am", "am", 2048, 12000.0, TIMED_BLOCKS,
+         {"fold.cu": 1, "adpcm.cu": 1, "iir.cu": 1, "agc.cu": 1}),
+        ("wfm", "wfm", 128, 48000.0, 5,
+         {"fold.cu": 1, "adpcm.cu": 1, "iir.cu": 1, "agc.cu": 0}),
+    ]
+    for label, mode, m, rate, n_timed, per_block in bank_paths:
+        bank = ChannelizedBank(FS, m, mode=mode, audio_rate=rate,
+                               compression="adpcm", target_seconds=0.05,
+                               device=dev)
+        for i in range(m):
+            bank.assign(float((i - m // 2) * FS / m))
+        carriers = [float((i * m // M - m // 2) * FS / m) for i in TONE_CHANNELS]
+        tone_slots = [bank.channel_for(f)[0] for f in carriers]   # dense: slot k
+        nb = WARMUP_BLOCKS + n_timed
+        blocks = seeded_blocks(torch, gen, dev, FS, bank.block, nb, carriers,
+                               mode)
+        results, wall, launches, peak = drive(
+            label, bank.dispatch, bank.fetch, blocks, kernels, torch, dev)
+        launches_by_path[label] = launches
+        check_launches(label, launches, {k: v * nb for k, v in per_block.items()})
+        out_bytes = bank.channel_block * int(rate) // int(bank.channel_rate) // 2
+        squelch = bank.chain.selector.squelch
+        windows = squelch.block // squelch.window
+        for y, aux in results:
+            data, strides = y
+            pdb = aux["selector.squelch.power_db"]
+            check(data.shape == (m, out_bytes) and data.dtype == np.uint8,
+                  f"{label}: bytes {data.shape} {data.dtype}")
+            check(strides.shape == (m, out_bytes // adpcm.STATE_STRIDE)
+                  and strides.dtype == np.int32, f"{label}: stride {strides.shape}")
+            check(pdb.shape == (m, windows) and pdb.dtype == np.float32
+                  and np.isfinite(pdb).all(), f"{label}: power_db {pdb.shape}")
+            if mode == "wfm":
+                rds = aux["wfm.rds_tap.rds"]
+                check(rds.shape == (m, bank.channel_block * 250 // 384 // 16)
+                      and rds.dtype == np.complex64 and np.isfinite(rds).all(),
+                      f"wfm: rds aux {rds.shape} {rds.dtype}")
+        for k in tone_slots:
+            audio_k = decode_channel([(y[0][k], y[1][k]) for y, _ in results], adpcm)
+            settled = audio_k[len(audio_k) // 2:].astype(np.float32) / 32767
+            snr = tone_snr(settled, TONE_AUDIO_HZ, rate)
+            log(f"[{label}] slot {k}: {mode} tone SNR {snr:.1f} dB "
+                f"(minimum {TONE_SNR_MIN_DB})")
+            check(snr > TONE_SNR_MIN_DB, f"{label}: channel {k} tone SNR {snr:.1f} dB")
+        quiet = decode_channel([(y[0][5], y[1][5]) for y, _ in results], adpcm)
+        check(np.isfinite(quiet).all(), f"{label}: quiet channel audio")
+        paths[label] = report(label, smi, wall, n_timed, bank.block, FS, peak)
+        del bank, blocks, results
+        torch.cuda.empty_cache()
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    for k in kernels.ALL:
-        k.launches = 0
-    results = []
-    pending = None
-    t_start = None
-    for b in range(n_blocks):
-        if b == WARMUP_BLOCKS:
-            torch.cuda.synchronize()
-            t_start = time.perf_counter()
-        nxt = bank.dispatch(iq[b])
-        if pending is not None:
-            results.append(bank.fetch(*pending))
-        pending = nxt
-    results.append(bank.fetch(*pending))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_start
-    launches = {k.source.name: k.launches for k in kernels.ALL}
-    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
-    log(f"[main] launches during the main path: {launches} "
-        f"(blocks fed: {n_blocks})")
-    for k in kernels.ALL:
-        check(k.launches == n_blocks,
-              f"{k.source.name}: {k.launches} launches for {n_blocks} blocks")
-
-    check(len(results) == n_blocks, "missing results")
+    # BASELINE config #1: 2.4 MS/s → NFM → 12 kHz ADPCM through Program
+    chain = ClientDemodulatorChain(CFG1_FS, mode="nfm", compression="adpcm")
+    chain.set_frequency_offset(CFG1_OFFSET)
+    prog = build_program(chain, CFG1_FS, target_seconds=0.1, device=dev)
+    blocks = seeded_blocks(torch, gen, dev, CFG1_FS, prog.block, n_blocks,
+                           [CFG1_OFFSET], "nfm", noise=0.05)
+    results, wall, launches, peak = drive(
+        "cfg1", prog.dispatch, prog.fetch, blocks, kernels, torch, dev)
+    launches_by_path["cfg1"] = launches
+    check_launches("cfg1", launches, {"fold.cu": 0, "adpcm.cu": n_blocks,
+                                      "iir.cu": n_blocks, "agc.cu": n_blocks})
     for y, aux in results:
         data, strides = y
+        check(data.shape == (prog.out_block,) and data.dtype == np.uint8,
+              f"cfg1: bytes {data.shape} {data.dtype}")
+        check(strides.shape == (prog.out_block // adpcm.STATE_STRIDE,)
+              and strides.dtype == np.int32, f"cfg1: stride {strides.shape}")
         pdb = aux["selector.squelch.power_db"]
-        check(data.shape == (M, 300) and data.dtype == np.uint8, f"bytes {data.shape} {data.dtype}")
-        check(strides.shape == (M, 3) and strides.dtype == np.int32, f"stride {strides.shape}")
-        check(pdb.shape == (M, 1) and np.isfinite(pdb).all(), "power_db")
-    for i in TONE_CHANNELS:
-        k = bank.channel_for(float((i - M // 2) * FS / M))[0]    # dense: slot k
-        audio_k = decode_channel([(y[0][k], y[1][k]) for y, _ in results], adpcm)
-        settled = audio_k[len(audio_k) // 2:].astype(np.float32) / 32767
-        snr = tone_snr(settled, TONE_AUDIO_HZ, 12000.0)
-        log(f"[main] dial {i} (slot {k}): USB tone SNR {snr:.1f} dB "
-            f"(minimum {TONE_SNR_MIN_DB})")
-        check(snr > TONE_SNR_MIN_DB, f"channel {k} tone SNR {snr:.1f} dB")
-    quiet = decode_channel([(y[0][5], y[1][5]) for y, _ in results], adpcm)
-    check(np.isfinite(quiet).all(), "quiet channel audio")
-
-    msps = TIMED_BLOCKS * block / wall / 1e6
-    log(f"[main] {smi}: {TIMED_BLOCKS} blocks of {block} samples in "
-        f"{wall * 1e3:.3f} ms (results fetched to host every block): "
-        f"{msps:.3f} MS/s = {msps / (FS / 1e6):.3f}x real time; "
-        f"{wall / TIMED_BLOCKS * 1e3:.3f} ms/block; peak device memory "
-        f"{peak_mib:.1f} MiB")
+        check(pdb.dtype == np.float32 and np.isfinite(pdb).all(), "cfg1: power_db")
+    audio1 = decode_channel([y for y, _ in results], adpcm)
+    snr = tone_snr(audio1[len(audio1) // 2:].astype(np.float32) / 32767,
+                   TONE_AUDIO_HZ, 12000.0)
+    log(f"[cfg1] NFM tone at {CFG1_OFFSET:.0f} Hz: SNR {snr:.1f} dB "
+        f"(minimum {TONE_SNR_MIN_DB})")
+    check(snr > TONE_SNR_MIN_DB, f"cfg1: tone SNR {snr:.1f} dB")
+    paths["cfg1"] = report("cfg1", smi, wall, TIMED_BLOCKS, prog.block,
+                           CFG1_FS, peak)
+    print(json.dumps({"card": smi, "paths": paths}), flush=True)
 
     # -- 6. kernel timings at the main-path shapes ------------------------------
     iters = 50
@@ -314,12 +521,28 @@ def main() -> int:
                          iters, torch)
     adpcm_plain_ms = time_cuda(lambda: adpcm.encode_strides_plain(lanes_in, prev, idxs),
                                3, torch)
+    iir_ms = time_cuda(lambda: iir.first_order_apply(iir_st, *deemph, iir_x, device=dev),
+                       iters, torch)
+    iir_plain_ms = time_cuda(lambda: iir.first_order_apply_plain(iir_st, *deemph, iir_x),
+                             iters, torch)
+    agc_ms = time_cuda(lambda: agc.agc_apply(agc_st, agc.FAST, agc_x, 50, device=dev),
+                       iters, torch)
+    agc_plain_ms = time_cuda(lambda: agc.agc_apply_plain(agc_st, agc.FAST, agc_x, 50),
+                             5, torch)
 
     fold_bytes = u.numel() * 8 + bank2.numel() * 4 + v_plain.numel() * 8
     fold_ops = 4 * p_taps * v_plain.numel()        # re+im: P mul-adds each
     lanes = lanes_in.shape[0]
     adpcm_bytes = lanes_in.numel() * 2 + 2 * lanes * 4 + lanes * adpcm.STATE_STRIDE
     adpcm_ops = 25 * 2 * adpcm.STATE_STRIDE * lanes  # ~25 int ops per nibble
+    # IIR: x in, y out, four (rows,) state vectors; per sample 2 mul + 1 add
+    # for c[n] and one multiply-add for y[n]
+    iir_bytes = iir_x.numel() * 8 + 4 * M * 4
+    iir_ops = 5 * iir_x.numel()
+    # AGC: x in, y out, state in and out; per sample |x| and max, the ramp
+    # (divide, multiply, add) and the multiply
+    agc_bytes = agc_x.numel() * 8 + 4 * M * 4
+    agc_ops = 6 * agc_x.numel()
 
     def bound(nbytes, nops):
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
@@ -327,26 +550,52 @@ def main() -> int:
 
     fold_bound, fold_by = bound(fold_bytes, fold_ops)
     adpcm_bound, adpcm_by = bound(adpcm_bytes, adpcm_ops)
+    iir_bound, iir_by = bound(iir_bytes, iir_ops)
+    agc_bound, agc_by = bound(agc_bytes, agc_ops)
     log(f"[time] {smi}: fold kernel {fold_ms:.5f} ms, bound {fold_bound:.5f} ms "
         f"({fold_by}: {fold_bytes} B, {fold_ops} flop), plain {fold_plain_ms:.5f} ms, "
         f"depthwise F.conv1d {fold_lib_ms:.5f} ms (max diff {conv_err:.2e})")
     log(f"[time] {smi}: adpcm kernel {adpcm_ms:.5f} ms, bound {adpcm_bound:.5f} ms "
         f"({adpcm_by}: {adpcm_bytes} B, ~{adpcm_ops} int ops; serial chain of "
         f"{2 * adpcm.STATE_STRIDE} nibble steps per lane), plain {adpcm_plain_ms:.5f} ms")
+    log(f"[time] {smi}: iir kernel {iir_ms:.5f} ms, bound {iir_bound:.5f} ms "
+        f"({iir_by}: {iir_bytes} B, {iir_ops} flop), plain {iir_plain_ms:.5f} ms")
+    log(f"[time] {smi}: agc kernel {agc_ms:.5f} ms, bound {agc_bound:.5f} ms "
+        f"({agc_by}: {agc_bytes} B, {agc_ops} flop; serial chain of "
+        f"{agc_x.shape[1] // 50} chunk steps per row), plain {agc_plain_ms:.5f} ms")
+
+    def total(name):
+        return sum(v[name] for v in launches_by_path.values())
+
+    def by_path(name):
+        return {p: v[name] for p, v in launches_by_path.items()}
 
     line = {"kernels": [
         {"name": "polyphase_fold", "route": "cuda",
          "source": "openwebrx_tpu_torch/csrc/fold.cu",
          "replaces": "openwebrx_tpu/ops/pallas_fold.py:39",
-         "launches": launches["fold.cu"], "max_abs_err": fold_err,
-         "ms": fold_ms, "plain_ms": fold_plain_ms, "bound_ms": fold_bound,
-         "bound_by": fold_by, "library_ms": fold_lib_ms},
+         "launches": total("fold.cu"), "launches_by_path": by_path("fold.cu"),
+         "max_abs_err": fold_err, "ms": fold_ms, "plain_ms": fold_plain_ms,
+         "bound_ms": fold_bound, "bound_by": fold_by, "library_ms": fold_lib_ms},
         {"name": "adpcm_encode_strides", "route": "cuda",
          "source": "openwebrx_tpu_torch/csrc/adpcm.cu",
          "replaces": "openwebrx_tpu/ops/adpcm.py:169",
-         "launches": launches["adpcm.cu"], "max_abs_err": float(adpcm_err),
-         "ms": adpcm_ms, "plain_ms": adpcm_plain_ms, "bound_ms": adpcm_bound,
+         "launches": total("adpcm.cu"), "launches_by_path": by_path("adpcm.cu"),
+         "max_abs_err": float(adpcm_err), "ms": adpcm_ms,
+         "plain_ms": adpcm_plain_ms, "bound_ms": adpcm_bound,
          "bound_by": adpcm_by, "library_ms": None},
+        {"name": "first_order_iir", "route": "cuda",
+         "source": "openwebrx_tpu_torch/csrc/iir.cu",
+         "replaces": "openwebrx_tpu/ops/iir.py:18",
+         "launches": total("iir.cu"), "launches_by_path": by_path("iir.cu"),
+         "max_abs_err": iir_err, "ms": iir_ms, "plain_ms": iir_plain_ms,
+         "bound_ms": iir_bound, "bound_by": iir_by, "library_ms": None},
+        {"name": "agc_chunked", "route": "cuda",
+         "source": "openwebrx_tpu_torch/csrc/agc.cu",
+         "replaces": "openwebrx_tpu/ops/agc.py:58",
+         "launches": total("agc.cu"), "launches_by_path": by_path("agc.cu"),
+         "max_abs_err": agc_err, "ms": agc_ms, "plain_ms": agc_plain_ms,
+         "bound_ms": agc_bound, "bound_by": agc_by, "library_ms": None},
     ]}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

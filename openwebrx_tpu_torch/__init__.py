@@ -3,7 +3,8 @@
 The JAX package ``openwebrx_tpu`` is the reference and this package imports
 nothing from it (not even its numpy-only modules: importing ``openwebrx_tpu``
 configures and imports JAX).  Plain tensor code is PyTorch; the polyphase
-fold and the ADPCM encoder are CUDA kernels written by hand (``csrc/``).
+fold, the ADPCM encoder, the first-order IIR and the AGC are CUDA kernels
+written by hand (``csrc/``).
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``.  Without a
 card that default raises: the port never falls back to the CPU on its own.

@@ -1,11 +1,16 @@
 """Carry a reference bank's streaming state over into the port.
 
 The reference ``ChannelizedBank`` carries ``(tail, chain_state)``: the PFB
-tail and one state tuple per stage, in chain order.  The port's bank keeps
-the same tree, so a reference bank can run k blocks, hand its state over,
-and both banks continue on the same input.  The reference keeps complex
-leaves packed as (..., 2) float32 on its device; the caller unpacks them to
-complex64 while fetching the tree to numpy.
+tail and one state tuple per stage, in chain order (a ``Program`` carries
+the chain state alone).  The port keeps the same trees, so a reference
+bank can run k blocks, hand its state over, and both continue on the same
+input.  The leaves are complex64 (PFB, FIR, bandpass and resampler tails,
+the FM discriminator's previous sample), float32 (AGC gain, NR tails and
+floor, IIR state, the sync-AM phase and frequency), int32 (NCO phases
+including the RDS tap's, AGC and squelch hang, ADPCM codec state) and bool
+(squelch gate).  The reference keeps complex leaves packed as (..., 2)
+float32 on its device; the caller unpacks them to complex64 while fetching
+the tree to numpy.
 """
 
 from __future__ import annotations

@@ -106,13 +106,22 @@ class CudaKernel:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 # fold_launch(u, bank, v, n_time, m, p_taps, stream)
 FOLD = CudaKernel("fold.cu", "fold_launch", [_P, _P, _P, _I, _I, _I, _P])
 # adpcm_launch(samples, prev, idxs, out, lanes, stream)
 ADPCM = CudaKernel("adpcm.cu", "adpcm_launch", [_P, _P, _P, _P, _I, _P])
 
-ALL = (FOLD, ADPCM)
+# iir_launch(x, x_prev, y_prev, y, x_last, y_last, rows, n, b0, b1, a1, stream)
+IIR = CudaKernel("iir.cu", "iir_launch",
+                 [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P])
+# agc_launch(x, gain0, hang0, y, gain, hang, rows, n, chunk, attack, decay,
+#            hang_chunks, reference, max_gain, stream)
+AGC = CudaKernel("agc.cu", "agc_launch",
+                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _F, _P])
+
+ALL = (FOLD, ADPCM, IIR, AGC)
 
 
 def stream_handle(device) -> int:

@@ -1,7 +1,7 @@
 """Client audio chain: (rate convert) → NR → limit → ADPCM or int16.
 
-Counterpart of ``openwebrx_tpu/models/clientaudio.py``.  Integer-ratio
-rate conversion is ported; a fractional one raises NotImplementedError.
+Counterpart of ``openwebrx_tpu/models/clientaudio.py``: an integer-ratio
+rate conversion is a FIR decimator, any other a fractional resampler.
 """
 
 from __future__ import annotations
@@ -9,8 +9,8 @@ from __future__ import annotations
 from fractions import Fraction
 
 from openwebrx_tpu_torch.models.stages import (
-    AdpcmEncodeStage, FirDecimateStage, FloatToShortStage, LimitStage,
-    NoiseFilterStage,
+    AdpcmEncodeStage, FirDecimateStage, FloatToShortStage,
+    FractionalDecimatorStage, LimitStage, NoiseFilterStage,
 )
 from openwebrx_tpu_torch.runtime.chain import Chain
 
@@ -24,13 +24,13 @@ class ClientAudioChain(Chain):
         workers = []
         if in_rate != audio_rate:
             frac = Fraction(int(audio_rate), int(in_rate))
-            if frac.numerator != 1:
-                raise NotImplementedError(
-                    f"audio {in_rate} → {audio_rate} needs fractional "
-                    "resampling, which the port does not have yet "
-                    "(ROADMAP.md Queue 1: fir.resample_apply)")
-            workers.append(FirDecimateStage(frac.denominator,
-                                            transition_bw=0.15 * frac.denominator ** -1))
+            if frac.numerator == 1:
+                workers.append(FirDecimateStage(
+                    frac.denominator,
+                    transition_bw=0.15 * frac.denominator ** -1))
+            else:
+                workers.append(FractionalDecimatorStage(frac.numerator,
+                                                        frac.denominator))
         self.noise_filter = NoiseFilterStage()
         workers.append(self.noise_filter)
         workers.append(LimitStage())

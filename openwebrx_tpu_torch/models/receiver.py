@@ -1,23 +1,32 @@
 """Per-client demodulator chain: Selector → demodulator → client audio.
 
-Counterpart of ``ClientDemodulatorChain`` and ``MODE_BANDPASS`` in
-``openwebrx_tpu/models/receiver.py``.  This slice ports the SSB modes
-(usb, lsb, cw, usbd); any other mode raises NotImplementedError.
+Counterpart of ``DEMOD_FACTORY``, ``MODE_BANDPASS``,
+``ClientDemodulatorChain`` and ``build_program`` in
+``openwebrx_tpu/models/receiver.py``.  An unknown mode raises KeyError and a
+rate pair the chain cannot plan raises ValueError, as in the reference.
 """
 
 from __future__ import annotations
 
-from openwebrx_tpu_torch.models.analog import Ssb
+from openwebrx_tpu_torch.models.analog import Am, NFm, RawAm, SAm, Ssb, WFm
 from openwebrx_tpu_torch.models.clientaudio import ClientAudioChain
 from openwebrx_tpu_torch.models.selector import Selector
-from openwebrx_tpu_torch.runtime.chain import Chain
+from openwebrx_tpu_torch.models.stages import plan_block_size
+from openwebrx_tpu_torch.ops.formats import Format, StreamSpec
+from openwebrx_tpu_torch.runtime.chain import Chain, Program
 
-# demodulator factory by mode string (the SSB modes of this slice)
+# demodulator factory by mode string
 DEMOD_FACTORY = {
-    "lsb": Ssb,
-    "usb": Ssb,
-    "cw": Ssb,
-    "usbd": Ssb,
+    "nfm": lambda: NFm(),
+    "wfm": lambda: WFm(audio_rate=48000),
+    "am": lambda: Am(),
+    "sam": lambda: SAm(),
+    "lsb": lambda: Ssb(),
+    "usb": lambda: Ssb(),
+    "cw": lambda: Ssb(),
+    "rawam": lambda: RawAm(),
+    "rawsam": lambda: SAm(),
+    "usbd": lambda: Ssb(),
 }
 
 # default passbands per mode (Hz), as in the reference
@@ -39,12 +48,8 @@ class ClientDemodulatorChain(Chain):
     """Selector → demodulator → client audio."""
 
     def __init__(self, in_rate: float, audio_rate: float = 12000.0,
-                 mode: str = "usb", compression: str = "adpcm",
+                 mode: str = "nfm", compression: str = "adpcm",
                  name: str = "client_demod"):
-        if mode not in DEMOD_FACTORY:
-            raise NotImplementedError(
-                f"mode {mode!r} is not ported yet (this slice has "
-                f"{sorted(DEMOD_FACTORY)}; see ROADMAP.md Queue 1)")
         self.in_rate = float(in_rate)
         self.audio_rate = float(audio_rate)
         self.mode = mode
@@ -74,3 +79,12 @@ class ClientDemodulatorChain(Chain):
             return
         self.__init__(self.in_rate, self.audio_rate, mode, self.compression,
                       name=self.name)
+
+
+def build_program(chain: Chain, in_rate: float, batch_shape=(),
+                  target_seconds: float = 0.1, device="cuda") -> Program:
+    """Plan a block size and build the chain into a streaming Program on
+    ``device``."""
+    spec = StreamSpec(Format.COMPLEX_FLOAT, in_rate)
+    block = plan_block_size(chain, spec, target_seconds)
+    return Program(chain, spec, block, batch_shape, device=device)

@@ -1,8 +1,8 @@
 """Selector: per-channel tuner (shift → decimate → bandpass → squelch).
 
 Counterpart of ``plan_decimation`` and ``Selector`` in
-``openwebrx_tpu/models/selector.py``.  The fractional resampling stage is
-not ported yet: a rate pair that needs it raises NotImplementedError.
+``openwebrx_tpu/models/selector.py``.  A rate pair that is not an integer
+ratio gets a fractional resampling stage after the integer decimator.
 """
 
 from __future__ import annotations
@@ -10,7 +10,8 @@ from __future__ import annotations
 from fractions import Fraction
 
 from openwebrx_tpu_torch.models.stages import (
-    BandpassStage, FirDecimateStage, ShiftStage, SquelchStage,
+    BandpassStage, FirDecimateStage, FractionalDecimatorStage, ShiftStage,
+    SquelchStage,
 )
 from openwebrx_tpu_torch.runtime.chain import Chain
 
@@ -52,10 +53,8 @@ class Selector(Chain):
                 d, transition_bw=0.15 * self.out_rate / self.in_rate,
                 cutoff=0.5 * self.out_rate / self.in_rate))
         if frac != 1:
-            raise NotImplementedError(
-                f"{in_rate} → {out_rate} needs fractional resampling "
-                f"({frac}), which the port does not have yet (ROADMAP.md "
-                "Queue 1: fir.resample_apply)")
+            workers.append(FractionalDecimatorStage(frac.numerator,
+                                                    frac.denominator))
         self.bandpass = BandpassStage(-out_rate / 2 * 0.95, out_rate / 2 * 0.95)
         workers.append(self.bandpass)
         self.squelch = SquelchStage() if with_squelch else None

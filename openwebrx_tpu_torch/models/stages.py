@@ -1,7 +1,8 @@
-"""Stage wrappers for the DSP ops on the SSB bank path.
+"""Stage wrappers for the DSP ops of the analog chains.
 
-Counterpart of the stages of ``openwebrx_tpu/models/stages.py`` that
-``ChannelizedBank`` runs in USB/LSB/CW mode, with the same control surface
+Counterpart of the stages of ``openwebrx_tpu/models/stages.py`` that the
+analog demodulator chains run (every mode of ``DEMOD_FACTORY``; the
+waterfall's stage is not ported yet), with the same control surface
 (live setters bump the params version) and the same block negotiation:
 every stage declares ``ratio()`` and ``divisor()`` and
 ``plan_block_size`` picks the smallest block of about a target duration
@@ -17,7 +18,8 @@ import numpy as np
 import torch
 
 from openwebrx_tpu_torch.ops import (adpcm, agc, bandpass, convert, demod,
-                                     fir, firdes, nco, noisefilter, squelch)
+                                     fir, firdes, iir, nco, noisefilter,
+                                     squelch)
 from openwebrx_tpu_torch.ops.formats import Format, StreamSpec
 from openwebrx_tpu_torch.runtime.chain import Chain, Stage, digest
 
@@ -134,6 +136,51 @@ class FirDecimateStage(OpStage):
         return ("fir_decimate", self.decimation, digest(self.taps))
 
 
+class FractionalDecimatorStage(OpStage):
+    """Rational L/M resampling as one polyphase strided conv."""
+
+    def __init__(self, interpolation: int, decimation: int,
+                 transition_bw: float | None = None, taps=None,
+                 name: str = "fractional"):
+        self.name = name
+        self.interpolation = int(interpolation)
+        self.decimation = int(decimation)
+        if taps is None:
+            # anti-alias at the upsampled rate: cutoff 0.5/max(L,M)
+            cut = 0.45 / max(self.interpolation, self.decimation)
+            tbw = transition_bw if transition_bw is not None else cut * 0.3
+            taps = firdes.lowpass_taps(cut, tbw) * self.interpolation
+        self.bank, self.tail_len, self.delay_groups = fir.polyphase_bank(
+            taps, self.interpolation, self.decimation)
+
+    def ratio(self, in_spec):
+        return Fraction(self.interpolation, self.decimation)
+
+    def divisor(self, in_spec):
+        return self.decimation
+
+    def _out_spec(self, in_spec):
+        return in_spec.with_rate(in_spec.rate * self.interpolation
+                                 / self.decimation)
+
+    def init_state(self, batch_shape, device):
+        return fir.resample_init(self.tail_len, batch_shape,
+                                 complex_input=self.in_spec.format.is_complex,
+                                 device=device)
+
+    def params(self, device):
+        return torch.as_tensor(self.bank, device=device)
+
+    def apply(self, state, params, x):
+        state, y = fir.resample_apply(state, params, x, self.interpolation,
+                                      self.decimation)
+        return state, y, {}
+
+    def signature(self):
+        return ("fractional", self.interpolation, self.decimation,
+                digest(self.bank))
+
+
 # --------------------------------------------------------------- bandpass --
 class BandpassStage(OpStage):
     """Live-tunable FFT bandpass (transition 320 Hz at the stage's rate)."""
@@ -234,6 +281,59 @@ class SquelchStage(OpStage):
 
 
 # ----------------------------------------------------------------- demods --
+class FmDemodStage(OpStage):
+    """Quadrature FM discriminator."""
+
+    name = "fm_demod"
+
+    def _out_spec(self, in_spec):
+        return in_spec.with_format(Format.FLOAT)
+
+    def init_state(self, batch_shape, device):
+        return demod.fm_init(batch_shape, device)
+
+    def apply(self, state, params, x):
+        state, y = demod.fm_demod(state, x)
+        return state, y, {}
+
+    def signature(self):
+        return ("fm_demod",)
+
+
+class AmDemodStage(OpStage):
+    """Envelope detector."""
+
+    name = "am_demod"
+
+    def _out_spec(self, in_spec):
+        return in_spec.with_format(Format.FLOAT)
+
+    def apply(self, state, params, x):
+        return state, demod.am_demod(x), {}
+
+    def signature(self):
+        return ("am_demod",)
+
+
+class SyncAmStage(OpStage):
+    """Carrier-locked AM (block-wise carrier estimate)."""
+
+    name = "sync_am"
+
+    def _out_spec(self, in_spec):
+        return in_spec.with_format(Format.FLOAT)
+
+    def init_state(self, batch_shape, device):
+        return demod.sync_am_init(batch_shape, device)
+
+    def apply(self, state, params, x):
+        state, y = demod.sync_am_demod(state, x)
+        return state, y, {}
+
+    def signature(self):
+        return ("sync_am",)
+
+
 class RealPartStage(OpStage):
     """SSB detector."""
 
@@ -284,6 +384,51 @@ class GainStage(OpStage):
         return ("gain",)
 
 
+# ---------------------------------------------------------------- IIR-ish --
+class DcBlockStage(OpStage):
+    """Single-pole DC blocker."""
+
+    name = "dc_block"
+
+    def plan(self, in_spec, block):
+        self.coeffs = iir.dc_block_coeffs(in_spec.rate)
+        return super().plan(in_spec, block)
+
+    def init_state(self, batch_shape, device):
+        return iir.first_order_init(batch_shape, device)
+
+    def apply(self, state, params, x):
+        b0, b1, a1 = self.coeffs
+        state, y = iir.first_order_apply(state, b0, b1, a1, x, device=x.device)
+        return state, y, {}
+
+    def signature(self):
+        return ("dc_block", self.coeffs)
+
+
+class DeemphasisStage(OpStage):
+    """One-pole de-emphasis with time constant ``tau``."""
+
+    def __init__(self, tau: float, name: str = "deemphasis"):
+        self.name = name
+        self.tau = float(tau)
+
+    def plan(self, in_spec, block):
+        self.coeffs = iir.deemphasis_coeffs(in_spec.rate, self.tau)
+        return super().plan(in_spec, block)
+
+    def init_state(self, batch_shape, device):
+        return iir.first_order_init(batch_shape, device)
+
+    def apply(self, state, params, x):
+        b0, b1, a1 = self.coeffs
+        state, y = iir.first_order_apply(state, b0, b1, a1, x, device=x.device)
+        return state, y, {}
+
+    def signature(self):
+        return ("deemphasis", self.coeffs)
+
+
 class AgcStage(OpStage):
     """Chunked AGC (FAST/SLOW profiles)."""
 
@@ -300,11 +445,56 @@ class AgcStage(OpStage):
         return agc.agc_init(self.profile, batch_shape, device)
 
     def apply(self, state, params, x):
-        state, y = agc.agc_apply(state, self.profile, x, self.chunk)
+        state, y = agc.agc_apply(state, self.profile, x, self.chunk,
+                                 device=x.device)
         return state, y, {}
 
     def signature(self):
         return ("agc", self.profile, self.chunk)
+
+
+# ------------------------------------------------------------------- rds --
+class RdsTapStage(OpStage):
+    """Pass-through RDS tap inside the WFM chain: the 57 kHz subcarrier of
+    the FM composite is mixed to baseband, low-passed and decimated by 16
+    for the whole channel batch, and emitted as the ``rds`` aux output
+    (complex64, rate/16); the composite passes through unchanged."""
+
+    DECIMATION = 16
+
+    def __init__(self, name: str = "rds_tap"):
+        self.name = name
+
+    def divisor(self, in_spec):
+        return self.DECIMATION
+
+    def plan(self, in_spec, block):
+        out = super().plan(in_spec, block)
+        # ±3 kHz around the subcarrier holds the ±2.4 kHz RDS spectrum
+        self.taps = firdes.lowpass_taps(3000.0 / in_spec.rate,
+                                        2400.0 / in_spec.rate)
+        self.rate_fixed = nco.rate_to_fixed(-57000.0 / in_spec.rate)
+        return out
+
+    def init_state(self, batch_shape, device):
+        return (nco.shift_init(batch_shape, device),
+                fir.fir_init(len(self.taps), batch_shape, complex_input=True,
+                             device=device))
+
+    def params(self, device):
+        # design-time constants, shipped as params like the FIR's taps
+        return (torch.as_tensor(self.rate_fixed, device=device),
+                torch.as_tensor(self.taps, device=device))
+
+    def apply(self, state, params, x):
+        phase, tail = state
+        rate, taps = params
+        phase, mixed = nco.shift_apply(phase, rate, x.to(torch.complex64))
+        tail, bb = fir.fir_apply(tail, taps, mixed, self.DECIMATION)
+        return (phase, tail), x, {"rds": bb}
+
+    def signature(self):
+        return ("rds_tap", self.DECIMATION, digest(self.taps))
 
 
 # ------------------------------------------------------------ client audio --

@@ -2,9 +2,13 @@
 
 Counterpart of ``openwebrx_tpu/ops/agc.py``: the envelope is the peak of
 each chunk, the gain follows attack/decay dynamics with hang over the
-chunks, and the per-chunk gain is ramped back to sample rate.  The chunk
-recurrence is a Python loop (12 steps per block on the 1024-channel bank);
-a CUDA kernel for it is queued in ROADMAP.md.
+chunks, and the per-chunk gain is ramped back to sample rate.  On a CUDA
+tensor the whole function (chunk peaks, the chunk recurrence, the ramp and
+the multiply) is one launch of the hand-written kernel ``csrc/agc.cu``; on
+a CPU tensor it is :func:`agc_apply_plain`, whose chunk recurrence is a
+Python loop.  The kernel repeats the plain version's float32 operations in
+its order with round-to-nearest intrinsics, so the gain, the hang counters
+and the audio are identical.
 """
 
 from __future__ import annotations
@@ -12,9 +16,11 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
-from openwebrx_tpu_torch import resolve_device
+from openwebrx_tpu_torch import check_on, resolve_device
+from openwebrx_tpu_torch.kernels import AGC, stream_handle
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,12 +50,16 @@ def agc_init(profile: AgcProfile, batch_shape=(), device="cuda"):
 
 @functools.lru_cache(maxsize=None)
 def _ramp(chunk: int, device: torch.device) -> torch.Tensor:
-    return torch.arange(chunk, dtype=torch.float32, device=device) / chunk
+    # divided on the host: PyTorch's CUDA division by a scalar multiplies
+    # by its reciprocal, which the kernel's exact i / chunk would not match
+    ramp = np.arange(chunk, dtype=np.float32) / np.float32(chunk)
+    return torch.as_tensor(ramp, device=device)
 
 
-def agc_apply(state, profile: AgcProfile, x: torch.Tensor,
-              chunk: int = CHUNK):
-    """x (..., B) float32, B % chunk == 0 → same shape out."""
+def agc_apply_plain(state, profile: AgcProfile, x: torch.Tensor,
+                    chunk: int = CHUNK):
+    """Plain version: x (..., B) float32 (or complex64), B % chunk == 0 →
+    ((gain, hang), y)."""
     gain0, hang = state
     b = x.shape[-1]
     nchunks = b // chunk
@@ -77,3 +87,36 @@ def agc_apply(state, profile: AgcProfile, x: torch.Tensor,
               + (gains - g_prev)[..., :, None] * _ramp(chunk, x.device))
     g_samp = g_samp.reshape(x.shape[:-1] + (b,))
     return (g, hang), (x * g_samp).to(x.dtype)
+
+
+def agc_apply(state, profile: AgcProfile, x: torch.Tensor, chunk: int = CHUNK,
+              device="cuda"):
+    """x (..., B), B % chunk == 0 → ((gain, hang), y) on ``device``: one
+    launch of the CUDA kernel there, the plain version on the CPU; the
+    tensors must lie on ``device``.  The kernel takes float32 x only."""
+    gain0, hang0 = state
+    dev = resolve_device(device)
+    check_on(dev, x, gain0, hang0)
+    lead = tuple(x.shape[:-1])
+    b = x.shape[-1] if x.dim() else 0
+    if chunk <= 0 or b == 0 or b % chunk:
+        raise ValueError(f"block {b} is not a positive multiple of chunk {chunk}")
+    if (gain0.dtype != torch.float32 or hang0.dtype != torch.int32
+            or tuple(gain0.shape) != lead or tuple(hang0.shape) != lead):
+        raise ValueError(f"state must be ({lead} float32, {lead} int32)")
+    if dev.type == "cpu":
+        return agc_apply_plain(state, profile, x, chunk)
+    if x.dtype != torch.float32:
+        raise ValueError(f"the AGC kernel takes float32 x, got {x.dtype}")
+    rows = int(np.prod(lead, dtype=np.int64))
+    xc = x.contiguous()
+    y = torch.empty_like(xc)
+    gain = torch.empty(lead, dtype=torch.float32, device=dev)
+    hang = torch.empty(lead, dtype=torch.int32, device=dev)
+    if rows:
+        AGC.launch(xc.data_ptr(), gain0.contiguous().data_ptr(),
+                   hang0.contiguous().data_ptr(), y.data_ptr(),
+                   gain.data_ptr(), hang.data_ptr(), rows, b, chunk,
+                   profile.attack, profile.decay, profile.hang_chunks,
+                   profile.reference, profile.max_gain, stream_handle(dev))
+    return (gain, hang), y

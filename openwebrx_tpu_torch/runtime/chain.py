@@ -1,9 +1,10 @@
-"""Stage/Chain: the block-processing chain graph.
+"""Stage/Chain/Program: the block-processing chain graph and its runner.
 
-Counterpart of ``digest``, ``Stage`` and ``Chain`` in
-``openwebrx_tpu/runtime/chain.py``.  A chain is a description; planning it
-against an input StreamSpec and block size fixes every stage's shapes, and
-``apply`` runs the stages eagerly on tensors.  All stages act on the last
+Counterpart of ``digest``, ``Stage``, ``Chain``, ``Program`` and
+``choose_block_size`` in ``openwebrx_tpu/runtime/chain.py``.  A chain is a
+description; planning it against an input StreamSpec and block size fixes
+every stage's shapes, and ``apply`` runs the stages eagerly on tensors.  A
+``Program`` owns one planned chain's streaming state on a device.  All stages act on the last
 (time) axis and broadcast over leading channel axes, so one chain serves a
 whole bank of channels.
 
@@ -16,17 +17,24 @@ Stage lifecycle:
 State trees have the same structure as the reference's, so a reference
 bank's state can be carried over (``openwebrx_tpu_torch/from_jax.py``).
 Params are versioned: every live setter bumps its stage's version, and a
-bank rebuilds (and uploads) its params only when the chain's aggregate
-version changed.
+bank or Program rebuilds (and uploads) its params only when the chain's
+aggregate version changed.
+
+The reference's tunnel plumbing (complex packing at jit boundaries, the
+fused int32 output buffer, the transport keepalive) is not ported: results
+come back as the same host objects through pinned asynchronous copies.
 """
 
 from __future__ import annotations
 
 import abc
 import hashlib
+from math import gcd
 
 import numpy as np
 import torch
+
+from openwebrx_tpu_torch import resolve_device
 
 
 def digest(arr) -> str:
@@ -144,3 +152,140 @@ class Chain(Stage):
 
     def signature(self):
         return ("chain",) + tuple(w.signature() for w in self.workers)
+
+
+# ------------------------------------------------------------ streaming --
+class Pending:
+    """One dispatched block's outputs: device tensors, or pinned host
+    copies in flight behind ``event``."""
+
+    __slots__ = ("y", "aux", "event")
+
+    def __init__(self, y, aux, event=None):
+        self.y, self.aux, self.event = y, aux, event
+
+
+def _to_host_async(t: torch.Tensor) -> torch.Tensor:
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+def start_fetch(y, aux, device: torch.device, to_host: bool = True) -> Pending:
+    """Wrap a step's outputs; on a card with ``to_host`` start their copies
+    into pinned host memory now, behind an event, without waiting."""
+    if to_host and device.type == "cuda":
+        y, aux = tree_map(_to_host_async, (y, aux))
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        return Pending(y, aux, event)
+    return Pending(y, aux)
+
+
+def finish_fetch(pending: Pending):
+    """Wait for a dispatched block and return (y, aux) as numpy."""
+    if pending.event is not None:
+        pending.event.synchronize()
+    return tree_map(lambda t: t.cpu().numpy(), (pending.y, pending.aux))
+
+
+def as_input_block(x, block: int, complex_input: bool,
+                   device: torch.device) -> torch.Tensor:
+    """A host or device block → a tensor on ``device``: (block,) complex64
+    (from complex samples, or packed (block, 2) float32 / int16 / uint8
+    pairs) for complex input, (block,) float32 for real input."""
+    t = torch.as_tensor(x) if isinstance(x, np.ndarray) else x
+    if not complex_input:
+        if tuple(t.shape) != (block,) or t.is_complex():
+            raise ValueError(f"expected {block} real samples, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        return t.to(device, torch.float32)
+    if t.is_complex():
+        if tuple(t.shape) != (block,):
+            raise ValueError(f"expected {block} samples, got {tuple(t.shape)}")
+        return t.to(device, torch.complex64)
+    if tuple(t.shape) != (block, 2):
+        raise ValueError(f"expected {block} complex samples (or packed "
+                         f"({block}, 2)), got {tuple(t.shape)}")
+    t = t.to(device)
+    if t.dtype == torch.int16:
+        t = t.to(torch.float32) * (1.0 / 32768.0)
+    elif t.dtype == torch.uint8:
+        t = (t.to(torch.float32) - 127.4) * (1.0 / 128.0)
+    elif t.dtype != torch.float32:
+        raise ValueError(f"unsupported packed sample dtype {t.dtype}")
+    return torch.view_as_complex(t.contiguous())
+
+
+class Program:
+    """A chain planned against (in_spec, block, batch_shape) on one device:
+    owns the streaming state and runs one block per dispatch."""
+
+    def __init__(self, chain: Stage, in_spec, block: int, batch_shape=(),
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.chain = chain
+        self.in_spec = in_spec
+        self.block = block
+        self.batch_shape = tuple(batch_shape)
+        self.out_spec, self.out_block = chain.plan(in_spec, block)
+        self._in_complex = bool(in_spec.format.is_complex)
+        self._params_cache = chain.params(self.device)
+        self._params_ver = chain.params_version()
+        self.state = chain.init_state(self.batch_shape, self.device)
+        # structural keys at build time: rebuild() matches the OLD states
+        # to the new workers through these, never through post-surgery
+        # worker objects (whose states they are not)
+        self._state_keys = (
+            [(w.label, w.signature()) for w in chain.workers]
+            if isinstance(chain, Chain) else [])
+
+    def _params(self):
+        """Current params, rebuilt only when a setter bumped the chain's
+        params version."""
+        v = self.chain.params_version()
+        if v != self._params_ver:
+            self._params_cache = self.chain.params(self.device)
+            self._params_ver = v
+        return self._params_cache
+
+    def dispatch(self, x, to_host: bool = True):
+        """Enqueue one block → (Pending, None).  With ``to_host`` the
+        results' copies into pinned host memory start at once; fetch()
+        waits for them."""
+        xt = as_input_block(x, self.block, self._in_complex, self.device)
+        self.state, y, aux = self.chain.apply(self.state, self._params(), xt)
+        return start_fetch(y, aux, self.device, to_host), None
+
+    def fetch(self, pending: Pending, _unused=None):
+        """Wait for a dispatched block and return (y, aux) as numpy."""
+        return finish_fetch(pending)
+
+    def process(self, x):
+        """One block, synchronous: → (y, aux) as numpy."""
+        return self.fetch(*self.dispatch(x))
+
+    def rebuild(self, keep_state: bool = True):
+        """Re-plan after graph surgery (e.g. a mode switch), carrying over
+        the state of top-level stages whose label and signature still
+        match."""
+        old = {}
+        if keep_state and isinstance(self.chain, Chain):
+            old = dict(zip(self._state_keys, self.state))
+        self.__init__(self.chain, self.in_spec, self.block, self.batch_shape,
+                      device=self.device)
+        if old and isinstance(self.chain, Chain):
+            self.state = tuple(
+                old.get((w.label, w.signature()), s)
+                for w, s in zip(self.chain.workers, self.state))
+
+
+def choose_block_size(in_rate: float, target_seconds: float,
+                      *divisors: int) -> int:
+    """A block size ≈ target_seconds·in_rate divisible by all divisors."""
+    base = 1
+    for d in divisors:
+        if d > 0:
+            base = base * d // gcd(base, d)
+    want = max(1, int(round(in_rate * target_seconds / base)))
+    return want * base

@@ -13,7 +13,8 @@ pinned host memory without waiting; ``fetch()`` waits for those copies and
 returns numpy; ``process()`` = fetch(dispatch()).  Results are the same
 host objects the reference bank returns: ``y = (bytes uint8 (n, B/2),
 stride int32 (n, B/200))`` for ADPCM or int16 audio (n, B) otherwise, and
-``aux = {"selector.squelch.power_db": (n, windows) float32}``.  Params
+``aux = {"selector.squelch.power_db": (n, windows) float32}``, plus
+``"wfm.rds_tap.rds"`` (n, B_rds) complex64 in WFM mode.  Params
 (fine shifts, squelch levels, passbands, NR thresholds) are rebuilt and
 uploaded only after a control changed.
 """
@@ -30,23 +31,8 @@ from openwebrx_tpu_torch.models.receiver import ClientDemodulatorChain, MODE_BAN
 from openwebrx_tpu_torch.models.stages import block_requirement, plan_block_size
 from openwebrx_tpu_torch.ops import channelizer as pfb
 from openwebrx_tpu_torch.ops.formats import Format, StreamSpec
-from openwebrx_tpu_torch.runtime.chain import digest, tree_map
-
-
-class Pending:
-    """One dispatched block's outputs: device tensors, or pinned host
-    copies in flight behind ``event``."""
-
-    __slots__ = ("y", "aux", "event")
-
-    def __init__(self, y, aux, event=None):
-        self.y, self.aux, self.event = y, aux, event
-
-
-def _to_host_async(t: torch.Tensor) -> torch.Tensor:
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    return host
+from openwebrx_tpu_torch.runtime.chain import (
+    Pending, as_input_block, digest, finish_fetch, start_fetch)
 
 
 class ChannelizedBank:
@@ -245,24 +231,7 @@ class ChannelizedBank:
     def _as_block(self, iq) -> torch.Tensor:
         """(block,) complex64, or packed (block, 2) float32 / int16 / uint8
         (numpy or tensor) → (block,) complex64 on the bank's device."""
-        t = torch.as_tensor(iq) if isinstance(iq, np.ndarray) else iq
-        if t.is_complex():
-            if tuple(t.shape) != (self.block,):
-                raise ValueError(
-                    f"expected {self.block} samples, got {tuple(t.shape)}")
-            return t.to(self.device, torch.complex64)
-        if tuple(t.shape) != (self.block, 2):
-            raise ValueError(
-                f"expected {self.block} complex samples (or packed "
-                f"({self.block}, 2)), got {tuple(t.shape)}")
-        t = t.to(self.device)
-        if t.dtype == torch.int16:
-            t = t.to(torch.float32) * (1.0 / 32768.0)
-        elif t.dtype == torch.uint8:
-            t = (t.to(torch.float32) - 127.4) * (1.0 / 128.0)
-        elif t.dtype != torch.float32:
-            raise ValueError(f"unsupported packed sample dtype {t.dtype}")
-        return torch.view_as_complex(t.contiguous())
+        return as_input_block(iq, self.block, True, self.device)
 
     def pack_input(self, iq_block: np.ndarray) -> np.ndarray:
         """Host complex block → packed (block, 2) float32 (zero-copy)."""
@@ -275,12 +244,7 @@ class ChannelizedBank:
         waits for them."""
         x = self._as_block(iq_block)
         self.state, y, aux = self._raw_step(self.state, self._params(), x)
-        if to_host and self.device.type == "cuda":
-            y, aux = tree_map(_to_host_async, (y, aux))
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-            return Pending(y, aux, event), None
-        return Pending(y, aux), None
+        return start_fetch(y, aux, self.device, to_host), None
 
     def feed_dispatch(self, xdev, to_host: bool = True):
         """Feed one device chunk.  Returns the pending result when a full
@@ -311,9 +275,7 @@ class ChannelizedBank:
 
     def fetch(self, pending: Pending, _unused=None):
         """Wait for a dispatched block and return (y, aux) as numpy."""
-        if pending.event is not None:
-            pending.event.synchronize()
-        return tree_map(lambda t: t.cpu().numpy(), (pending.y, pending.aux))
+        return finish_fetch(pending)
 
     def fetch_many(self, joined, n: int):
         """Results of a delivery-stride batch, in dispatch order."""

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the port's 1024-channel bank goes, on one CUDA card.
 
-Runs ``openwebrx_tpu_torch``'s ``ChannelizedBank(49.152e6, 1024, usb,
-adpcm)`` (BASELINE config #5) on seeded device-resident IQ, every result
-fetched to host numpy, and reports per block:
+Runs ``openwebrx_tpu_torch``'s ``ChannelizedBank(49.152e6, M, mode,
+adpcm)`` on seeded device-resident IQ, every result fetched to host numpy.
+The mode picks M and the audio rate as the JAX runtime sizes its banks at
+49.152 MS/s: usb (BASELINE config #5) and nfm 1024 channels of 48 kHz; am,
+sam and rawam 2048 of 24 kHz; wfm 128 of 384 kHz with 48 kHz audio.  It
+reports per block:
 
 * wall time (host clock around work ending in a synchronise);
 * device busy time (the union of kernel and copy intervals that
@@ -17,7 +20,7 @@ fetched to host numpy, and reports per block:
 
 Usage (from the root of a checkout, on a machine with a card)::
 
-    python3 profile_torch_bank.py [--blocks N]
+    python3 profile_torch_bank.py [--mode usb|nfm|am|sam|rawam|wfm] [--blocks N]
 """
 
 from __future__ import annotations
@@ -28,14 +31,21 @@ import subprocess
 import sys
 import time
 
-FS, M = 49.152e6, 1024
+FS = 49.152e6
+# mode → (channels, audio rate)
+BANKS = {"usb": (1024, 12000.0), "nfm": (1024, 12000.0),
+         "am": (2048, 12000.0), "sam": (2048, 12000.0),
+         "rawam": (2048, 12000.0), "wfm": (128, 48000.0)}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=sorted(BANKS), default="usb",
+                    help="demodulator mode of the bank (default usb)")
     ap.add_argument("--blocks", type=int, default=10,
                     help="profiled blocks (after 3 warm-up blocks)")
     args = ap.parse_args()
+    m, audio_rate = BANKS[args.mode]
 
     import torch
     if not torch.cuda.is_available():
@@ -52,10 +62,11 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
-    bank = ChannelizedBank(FS, M, mode="usb", compression="adpcm",
-                           target_seconds=0.05, device=dev)
-    for i in range(M):
-        bank.assign(float((i - M // 2) * FS / M))
+    bank = ChannelizedBank(FS, m, mode=args.mode, audio_rate=audio_rate,
+                           compression="adpcm", target_seconds=0.05,
+                           device=dev)
+    for i in range(m):
+        bank.assign(float((i - m // 2) * FS / m))
 
     # one record_function range per stage (this script's instrumentation)
     def annotate(label, fn):
@@ -113,7 +124,8 @@ def main() -> int:
     launches = sum(1 for e in evts if e.name in (
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
         "cuLaunchKernelEx")) / n
-    print(f"[profile] {smi}: {n} blocks of {bank.block} samples")
+    print(f"[profile] {smi}: {args.mode} bank, M={m}: {n} blocks of "
+          f"{bank.block} samples")
     print(f"[profile] wall {wall_plain * 1e3:.3f} ms/block without the profiler, "
           f"{wall_prof * 1e3:.3f} ms/block under it")
     print(f"[profile] device busy {busy_ms:.3f} ms/block; idle share "
@@ -148,7 +160,8 @@ def main() -> int:
     for name, (t, c) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"[profile]   {t / n / 1e3:9.4f} {c / n:7.1f}  {name[:90]}")
     print(json.dumps({
-        "card": smi, "block_samples": bank.block,
+        "card": smi, "mode": args.mode, "channels": m,
+        "block_samples": bank.block,
         "wall_ms": wall_plain * 1e3, "wall_ms_profiled": wall_prof * 1e3,
         "device_busy_ms": busy_ms, "launches_per_block": launches,
         "stages": {k: {"kernels_ms": v[0] / n / 1e3, "span_ms": v[1] / n / 1e3,

@@ -1,4 +1,5 @@
-"""The port's kernels (openwebrx_tpu_torch): polyphase fold and ADPCM encode.
+"""The port's kernels (openwebrx_tpu_torch): polyphase fold, ADPCM encode,
+first-order IIR and AGC.
 
 On the CPU the wrappers run their plain PyTorch versions, which are held
 against the JAX reference on the same numpy inputs.  The CUDA kernels are
@@ -14,7 +15,11 @@ import jax.numpy as jnp
 from openwebrx_tpu.ops import adpcm as jadpcm
 from openwebrx_tpu.ops import channelizer as jpfb
 from openwebrx_tpu.ops.pallas_fold import polyphase_fold as jax_fold
+from openwebrx_tpu.ops import agc as jagc
+from openwebrx_tpu.ops import iir as jiir
 from openwebrx_tpu_torch.ops import adpcm as tadpcm
+from openwebrx_tpu_torch.ops import agc as tagc
+from openwebrx_tpu_torch.ops import iir as tiir
 from openwebrx_tpu_torch.ops import channelizer as tpfb
 from openwebrx_tpu_torch.ops.fold import polyphase_fold, polyphase_fold_plain
 
@@ -171,3 +176,107 @@ class TestAdpcm:
         got = tadpcm.encode_strides(lanes, prev, idxs, device=cuda_device)
         ref = tadpcm.encode_strides_plain(lanes, prev, idxs)
         assert torch.equal(got, ref)
+
+
+class TestIir:
+    def test_plain_section_matches_jax(self):
+        """The wrapper on CPU tensors is the plain version: the JAX
+        section within 1e-5 of the output scale (two scan orders)."""
+        b0, b1, a1 = jiir.dc_block_coeffs(12000.0)
+        rng = np.random.default_rng(12)
+        x = rng.standard_normal((5, 600)).astype(np.float32)
+        x0, y0 = rng.standard_normal((2, 5)).astype(np.float32)
+        (jx, jy_last), jy = jiir.first_order_apply(
+            (jnp.asarray(x0), jnp.asarray(y0)), b0, b1, a1, jnp.asarray(x))
+        (tx, ty_last), ty = tiir.first_order_apply(
+            (torch.from_numpy(x0), torch.from_numpy(y0)), b0, b1, a1,
+            torch.from_numpy(x), device="cpu")
+        scale = np.abs(np.asarray(jy)).max()
+        assert np.abs(ty.numpy() - np.asarray(jy)).max() <= 1e-5 * scale
+        np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+        assert abs(float(ty_last[0]) - float(jy_last[0])) <= 1e-5 * scale
+
+    def test_rejects_bad_shapes(self):
+        z = torch.zeros(3)
+        with pytest.raises(ValueError):
+            tiir.first_order_apply((z, z), 1.0, 0.0, 0.5, torch.zeros(2, 8),
+                                     device="cpu")
+        with pytest.raises(ValueError):
+            tiir.first_order_apply((z, z), 1.0, 0.0, 0.5,
+                                     torch.zeros(3, 8, dtype=torch.float64),
+                                     device="cpu")
+
+    def test_default_device_needs_a_card(self):
+        """Without device= the wrapper targets CUDA and never falls back."""
+        z = torch.zeros(2)
+        with pytest.raises((RuntimeError, ValueError)):
+            tiir.first_order_apply((z, z), 1.0, -1.0, 0.9, torch.zeros(2, 8))
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("rows,n,coeffs", [
+        (1024, 2400, jiir.deemphasis_coeffs(48000.0, 150e-6)),   # NFM bank
+        (2048, 600, jiir.dc_block_coeffs(12000.0)),              # AM bank
+        (3, 9601, jiir.deemphasis_coeffs(48000.0, 50e-6)),       # ragged tile
+    ])
+    def test_kernel_matches_plain_on_card(self, cuda_device, rows, n, coeffs):
+        # tolerance: a warp scan of 8-sample segments against the plain
+        # doubling scan, 1e-5 of the output scale
+        b0, b1, a1 = coeffs
+        rng = np.random.default_rng(rows + n)
+        x = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32)).to(cuda_device)
+        st = tuple(torch.from_numpy(v).to(cuda_device) for v in
+                   rng.standard_normal((2, rows)).astype(np.float32))
+        (kx, ky), y = tiir.first_order_apply(st, b0, b1, a1, x, device=cuda_device)
+        (px, py), yp = tiir.first_order_apply_plain(st, b0, b1, a1, x)
+        torch.cuda.synchronize()
+        scale = float(yp.abs().max())
+        assert float((y - yp).abs().max()) <= 1e-5 * scale
+        assert torch.equal(kx, px)
+        assert float((ky - py).abs().max()) <= 1e-5 * scale
+
+
+class TestAgc:
+    def test_plain_section_matches_jax(self):
+        rng = np.random.default_rng(13)
+        x = (rng.standard_normal((4, 2400)) * [[0.01], [1.0], [5.0], [0.2]]).astype(np.float32)
+        js, jy = jagc.agc_apply(jagc.agc_init(jagc.FAST, (4,)), jagc.FAST,
+                                jnp.asarray(x), 50)
+        ts, ty = tagc.agc_apply(tagc.agc_init(tagc.FAST, (4,), device="cpu"),
+                                tagc.FAST, torch.from_numpy(x), 50, device="cpu")
+        np.testing.assert_array_equal(ts[1].numpy(), np.asarray(js[1]))
+        np.testing.assert_allclose(ts[0].numpy(), np.asarray(js[0]), rtol=1e-5)
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-6)
+
+    def test_rejects_bad_shapes(self):
+        st = tagc.agc_init(tagc.SLOW, (2,), device="cpu")
+        with pytest.raises(ValueError):
+            tagc.agc_apply(st, tagc.SLOW, torch.zeros(2, 120), 50, device="cpu")
+        with pytest.raises(ValueError):
+            tagc.agc_apply(st, tagc.SLOW, torch.zeros(3, 100), 50, device="cpu")
+
+    def test_default_device_needs_a_card(self):
+        st = tagc.agc_init(tagc.FAST, (2,), device="cpu")
+        with pytest.raises((RuntimeError, ValueError)):
+            tagc.agc_apply(st, tagc.FAST, torch.zeros(2, 100), 50)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("profile,rows,n,chunk", [
+        ("FAST", 1024, 2400, 50),     # NFM bank
+        ("SLOW", 1024, 600, 50),      # USB bank
+        ("SLOW", 5, 4800, 48),        # odd chunk
+    ])
+    def test_kernel_matches_plain_on_card(self, cuda_device, profile, rows, n, chunk):
+        """Final gain, hang counters and audio identical: the kernel
+        repeats the plain version's float32 operations in its order."""
+        prof = getattr(tagc, profile)
+        rng = np.random.default_rng(rows + n)
+        scale = 10.0 ** rng.uniform(-3, 1, (rows, 1))
+        x = torch.from_numpy((rng.standard_normal((rows, n)) * scale).astype(np.float32)).to(cuda_device)
+        st = (torch.from_numpy(rng.uniform(0.1, 100, rows).astype(np.float32)).to(cuda_device),
+              torch.from_numpy(rng.integers(0, 31, rows, dtype=np.int32)).to(cuda_device))
+        (kg, kh), ky = tagc.agc_apply(st, prof, x, chunk, device=cuda_device)
+        (pg, ph), py = tagc.agc_apply_plain(st, prof, x, chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(kg, pg)
+        assert torch.equal(kh, ph)
+        assert torch.equal(ky, py)

@@ -235,7 +235,7 @@ class TestAudioOps:
                 scale = np.array([[1.0], [0.01], [3.0]]) * (1 + blk)
                 x = (rng.standard_normal((3, 600)) * scale).astype(np.float32)
                 js, jy = jagc.agc_apply(js, prof_j, jnp.asarray(x), 50)
-                ts, ty = tagc.agc_apply(ts, prof_t, _t(x), 50)
+                ts, ty = tagc.agc_apply(ts, prof_t, _t(x), 50, device=CPU)
                 np.testing.assert_array_equal(ts[1].numpy(), np.asarray(js[1]))
                 np.testing.assert_allclose(ts[0].numpy(), np.asarray(js[0]), rtol=1e-5)
                 np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-6)
