@@ -8,13 +8,18 @@ Run from the root of a checkout on a machine with a CUDA card::
 Phases (any failure raises and the script exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit, PyTorch's device name;
-2. build the four CUDA kernels from ``openwebrx_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together);
+2. build the four CUDA kernels from ``openwebrx_tpu_torch/csrc`` and a
+   second build of ``adpcm.cu`` with shorter strides, which phase 6 times
+   (one ``nvcc`` per build, all started together);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the full-width banks give it: the polyphase fold and the first-order IIR
-   within stated tolerances, the ADPCM encoder byte-identical, the AGC's
-   final gain and hang counters identical and its audio within a stated
-   tolerance;
+   the full-width paths give it: the polyphase fold and the first-order IIR
+   within stated tolerances; the ADPCM encoder (the fused ``adpcm_encode``
+   at every path's shape over four blocks with the state carried, strides
+   built on every boundary of its index estimate, and ``encode_strides``)
+   with bytes, stride states and carried state identical; the AGC at every
+   path's shape, on all-zero rows, on a silence-to-full-scale step and on
+   rows longer than one shared-memory tile, with gain, hang counters and
+   audio identical;
 4. small banks (M=64) on the card against the same banks on the CPU (plain
    versions), on the same input, in every mode: usb, nfm, am, rawam, sam
    and wfm (gathered, at 384 kHz slices);
@@ -25,10 +30,18 @@ Phases (any failure raises and the script exits non-zero):
    bank, the 2048-channel AM bank, the 128-channel WFM bank (0.2 s blocks)
    and BASELINE config #1 (2.4 MS/s NFM through ``build_program``).  Each
    checks its outputs' shapes and dtypes, decodes its tones (≥ 15 dB SNR)
-   and logs ms/block, MS/s, its real-time multiple and peak memory;
+   and logs ms/block, MS/s, its real-time multiple and peak memory; the
+   shapes the paths hand the AGC and the ADPCM encoder are recorded and
+   must be the ones phase 3 checked;
 6. kernel device times (CUDA events, launches queued ahead of the device)
    beside their bounds, the plain versions and, for the fold, one PyTorch
-   call computing the same function.
+   call computing the same function; the AGC and the ADPCM encoder at every
+   path's shape, warm and cold (each launch on its own copy of the inputs,
+   none of them in the L2 cache), beside the time of their serial chain,
+   measured as a per-step slope: the AGC on one row of 48 and of 96
+   chunks, the ADPCM recurrence in lanes of 104 and of 200 nibbles (the
+   shorter build, first checked against the plain recurrence and for the
+   same main loop in its SASS).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -38,6 +51,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import os
 import re
 import subprocess
 import sys
@@ -57,14 +71,30 @@ FM_DEVIATION = {"nfm": 3000.0, "wfm": 75000.0}
 TONE_SNR_MIN_DB = 15.0              # as tests/test_channelized_bank.py
 FOLD_RTOL = 1e-5       # × max|v|: fp32 sums of P=16 terms, FMA vs mul+add
 IIR_RTOL = 1e-5        # × max|y|: warp-scan order vs the plain doubling scan
-AGC_RTOL = 0.0         # same float32 operations in the same order
 SMALL_BANK_LSB = 4     # int16 audio, card vs CPU: cuFFT/cuDNN sum orders
 SAM_RMS_LSB = 0.5      # sync AM: rms over a carrier channel (see phase 4)
 RDS_RTOL = 1e-4        # × max|rds|: WFM's RDS aux, card vs CPU
 # NVIDIA H100 SXM data sheet (700 W): HBM rate and non-tensor fp32 rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# 32-bit integer instructions per clock per SM at compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput)
+INT32_PER_CLOCK_PER_SM = 64
 SLEEP_CYCLES_PER_S = 2.0e9   # ≥ the H100's SM clock: sleeps err long
+L2_FLUSH_BYTES = 256 << 20   # read before cold launches: 5x the 50 MB L2
+COLD_COPIES = 20             # launches timed cold, each on its own inputs
+STEP_ITERS = 200             # launches per time of a per-step slope
+# A second build of adpcm.cu with 52-byte strides: its lanes run the
+# kernel's main loop (4 words of 8 nibbles) 3 times in place of 6
+SHORT_STRIDE = 52
+ADPCM_LOOP_NIBBLES = 32
+
+# The shapes the full-width paths give the AGC (profile, x, chunk) and the
+# ADPCM encoder (samples), as phase 5 records them
+AGC_PATH_CASES = {"usb": ("SLOW", (M, 600), 50), "nfm": ("FAST", (M, 2400), 50),
+                  "am": ("SLOW", (2 * M, 600), 50), "cfg1": ("FAST", (4800,), 50)}
+ADPCM_PATH_SHAPES = {"usb": (M, 600), "nfm": (M, 600), "am": (2 * M, 600),
+                     "wfm": (128, 9600), "cfg1": (1200,)}
 
 
 class SmokeFailure(RuntimeError):
@@ -88,27 +118,124 @@ def nvidia_smi() -> str:
     return out.strip().splitlines()[0].strip()
 
 
-def time_cuda(fn, iters: int, torch) -> float:
+def time_cuda(fn, iters: int, torch, flush=None) -> float:
     """Mean device milliseconds per call over ``iters`` back-to-back calls,
     from CUDA events.  The stream is first held busy for longer than the
     host takes to enqueue the calls, so the events time the device alone
-    and not the Python wrappers' launch rate."""
-    fn()
+    and not the Python wrappers' launch rate.  ``fn`` may be a list of
+    calls, one per launch: cold timing gives each its own copy of the
+    inputs and a ``flush`` tensor (larger than the L2 cache) that is read
+    before the timed launches, so no launch finds its inputs in L2."""
+    fns = fn if isinstance(fn, list) else [fn] * iters
+    fns[0]()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
+    for f in fns:
+        f()
     enqueue_s = time.perf_counter() - t0
+    if flush is not None:
+        flush.sum()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(int(min(2.0, 2 * enqueue_s + 0.01) * SLEEP_CYCLES_PER_S))
     start.record()
-    for _ in range(iters):
-        fn()
+    for f in fns:
+        f()
     stop.record()
     stop.synchronize()
-    return start.elapsed_time(stop) / iters
+    return start.elapsed_time(stop) / len(fns)
+
+
+def int16_audio(torch, gen, dev, rows, n):
+    """(rows, n) int16 of tone + noise, with clipped channels and
+    full-scale square waves mixed in."""
+    t = torch.arange(n, device=dev, dtype=torch.float32)
+    f = torch.linspace(200.0, 5800.0, rows, device=dev)[:, None]
+    audio = (0.6 * torch.sin(2 * np.pi * f * t / 12000.0)
+             + 0.3 * torch.randn(rows, n, generator=gen, device=dev))
+    audio[::7] *= 4.0                                   # clipped channels
+    audio[3::11] = torch.where(audio[3::11] > 0, 1.0, -1.0)   # ±full scale
+    return torch.clamp(audio * 32767.0, -32768, 32767).to(torch.int16)
+
+
+def agc_input(torch, gen, dev, shape):
+    """Seeded AGC input: x of ``shape`` with channel levels spread over
+    80 dB, and a random (gain, hang) start state."""
+    rows = int(np.prod(shape[:-1]))
+    x = (torch.randn(rows, shape[-1], generator=gen, device=dev)
+         * 10.0 ** (torch.rand(rows, 1, generator=gen, device=dev) * 4 - 3)
+         ).reshape(shape)
+    state = (torch.rand(shape[:-1], generator=gen, device=dev) * 100 + 0.01,
+             torch.randint(0, 31, shape[:-1], generator=gen, device=dev,
+                           dtype=torch.int32))
+    return state, x
+
+
+def adpcm_input(torch, gen, dev, shape, blocks=1):
+    """Seeded ADPCM encoder input: a random (predictor, index) start state
+    and ``blocks`` int16 audio blocks of ``shape``."""
+    rows = int(np.prod(shape[:-1]))
+    state = (torch.randint(-32768, 32767, shape[:-1], generator=gen,
+                           device=dev, dtype=torch.int32),
+             torch.randint(0, 89, shape[:-1], generator=gen, device=dev,
+                           dtype=torch.int32))
+    return state, [int16_audio(torch, gen, dev, rows, shape[-1]).reshape(shape)
+                   for _ in range(blocks)]
+
+
+def sass_loop_instructions(lib) -> int:
+    """Instructions in the widest loop of the built library ``lib``: from
+    the target of its widest predicated backward branch to that branch, in
+    ``cuobjdump -sass`` (next to ``nvcc``)."""
+    from openwebrx_tpu_torch.kernels import _nvcc
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    addrs, loops = [], []
+    for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass):
+        a = int(m.group(1), 16)
+        addrs.append(a)
+        b = re.search(r"@!?U?P\w+\s+BRA(?:\.\S+)?\s+(0x[0-9a-f]+)", m.group(2))
+        if b and int(b.group(1), 16) < a:
+            loops.append((a - int(b.group(1), 16), int(b.group(1), 16), a))
+    check(loops, f"no loop in the SASS of {lib}")
+    _, lo, hi = max(loops)
+    return sum(lo <= a <= hi for a in addrs)
+
+
+def boundary_strides(table, stride):
+    """(89, 6·stride) int16: per table value k, three strides whose sums
+    of |differences| are (2·stride − 1)·k − 1, ·k and ·k + 1 — mean |dx|
+    just below, at and just above every step of the index estimate."""
+    n1 = 2 * stride - 1
+    rows = []
+    for k in table:
+        row = []
+        for total in (n1 * int(k) - 1, n1 * int(k), n1 * int(k) + 1):
+            q, r = divmod(total, n1)
+            d = np.full(n1, q)
+            d[:r] += 1                              # steps of q or q + 1
+            sign = np.where(np.arange(n1) % 2 == 0, 1, -1)
+            row.append(-((q + 1) // 2) + np.concatenate([[0], np.cumsum(sign * d)]))
+        rows.append(np.concatenate(row))
+    out = np.stack(rows)
+    assert np.abs(out).max() <= 32767
+    return out.astype(np.int16)
+
+
+def agc_bytes(shape):
+    """x in, y out, (gain, hang) in and out."""
+    n = int(np.prod(shape))
+    return n * 8 + 4 * 4 * (n // shape[-1])
+
+
+def adpcm_bytes(shape):
+    """int16 samples and the (predictor, index) state in; bytes, stride
+    states and the new state out."""
+    n = int(np.prod(shape))
+    channels = n // shape[-1]
+    return n * 2 + n // 2 + 4 * (n // 200) + 4 * 4 * channels
 
 
 def tone_snr(audio, f_tone, fs_audio):
@@ -233,15 +360,20 @@ def main() -> int:
         f" cuda {torch.version.cuda}")
 
     # -- 2. build ------------------------------------------------------------
+    # adpcm_short: the ADPCM kernel with shorter strides, timed in phase 6
+    adpcm_short = kernels.CudaKernel("adpcm.cu", kernels.ADPCM.symbol,
+                                     kernels.ADPCM.argtypes,
+                                     defines=(f"ADPCM_STRIDE={SHORT_STRIDE}",))
+    builds = (*kernels.ALL, adpcm_short)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(kernels.ALL)) as pool:
-        secs = list(pool.map(lambda k: k.build(), kernels.ALL))
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        secs = list(pool.map(lambda k: k.build(), builds))
     log(f"[build] {time.perf_counter() - t0:.1f} s wall; " + ", ".join(
-        f"{k.source.name} {s:.1f} s" for k, s in zip(kernels.ALL, secs)))
-    for k in kernels.ALL:
+        f"{k.library_path().name} {s:.1f} s" for k, s in zip(builds, secs)))
+    for k in builds:
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", k.build_log)]
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", k.build_log))
-        log(f"[build] {k.source.name}: {len(regs)} kernels, registers "
+        log(f"[build] {k.library_path().name}: {len(regs)} kernels, registers "
             f"{min(regs, default=0)}..{max(regs, default=0)}, spill bytes {spills}")
 
     gen = torch.Generator(device=dev)
@@ -265,19 +397,12 @@ def main() -> int:
     check(tuple(v_kernel.shape) == (block // M, M), "fold output shape")
     check(fold_err <= fold_tol, f"fold kernel disagrees: {fold_err} > {fold_tol}")
 
-    # ADPCM at the bank's shape: 1024 channels × 600 int16 samples of tone +
-    # noise, with clipped extremes and full-scale steps mixed in
-    t = torch.arange(600, device=dev, dtype=torch.float32)
-    f = torch.linspace(200.0, 5800.0, M, device=dev)[:, None]
-    audio = (0.6 * torch.sin(2 * np.pi * f * t / 12000.0)
-             + 0.3 * torch.randn(M, 600, generator=gen, device=dev))
-    audio[::7] *= 4.0                                   # clipped channels
-    audio[3::11] = torch.where(audio[3::11] > 0, 1.0, -1.0)   # ±full scale
-    samples = torch.clamp(audio * 32767.0, -32768, 32767).to(torch.int16)
-    state = (torch.randint(-32768, 32767, (M,), generator=gen, device=dev,
-                           dtype=torch.int32),
-             torch.randint(0, 89, (M,), generator=gen, device=dev,
-                           dtype=torch.int32))
+    # ADPCM.  encode_strides (the recurrence on explicit start states) at
+    # the bank's 3072 lanes; then the fused adpcm_encode (one launch)
+    # against its plain composition on the card at every path's shape, four
+    # blocks with the state carried; strides on every boundary of the index
+    # estimate; and the card against the all-plain CPU encode
+    samples = int16_audio(torch, gen, dev, M, 600)
     lanes_in = samples.reshape(-1, 2 * adpcm.STATE_STRIDE).contiguous()
     prev = torch.randint(-32768, 32767, (lanes_in.shape[0],), generator=gen,
                          device=dev, dtype=torch.int32)
@@ -288,11 +413,42 @@ def main() -> int:
     torch.cuda.synchronize()
     adpcm_mismatch = int((b_kernel != b_plain).sum())
     adpcm_err = int((b_kernel.to(torch.int32) - b_plain.to(torch.int32)).abs().max())
-    log(f"[check] adpcm lanes {tuple(lanes_in.shape)} -> bytes "
+    log(f"[check] adpcm encode_strides lanes {tuple(lanes_in.shape)} -> bytes "
         f"{tuple(b_kernel.shape)}: {adpcm_mismatch} bytes differ (must be 0)")
     check(adpcm_mismatch == 0, "ADPCM kernel bytes differ from the plain version")
-    # the whole encode (reseed states in PyTorch + kernel) on the card
-    # against the all-plain encode on the CPU
+
+    adpcm_in = {}                  # label: (state, samples) timed in phase 6
+
+    def adpcm_case(label, state, blocks):
+        nonlocal adpcm_err
+        kst = pst = state
+        for x in blocks:
+            kst, (kb, ks) = adpcm.adpcm_encode(kst, x)
+            pst, (pb, ps) = adpcm.adpcm_encode_plain(pst, x)
+            torch.cuda.synchronize()
+            n_bytes = int((kb != pb).sum())
+            adpcm_err = max(adpcm_err, int((kb.to(torch.int32)
+                                            - pb.to(torch.int32)).abs().max()))
+            same = (n_bytes == 0 and torch.equal(ks, ps)
+                    and all(torch.equal(a, b) for a, b in zip(kst, pst)))
+            check(same, f"adpcm_encode {label} {tuple(x.shape)}: kernel differs "
+                  f"from the plain composition ({n_bytes} bytes differ)")
+        log(f"[check] adpcm_encode {label} {tuple(blocks[0].shape)} "
+            f"({blocks[0].numel() // 200} lanes), {len(blocks)} blocks carried: "
+            f"bytes, stride states and state identical")
+
+    for label, shape in ADPCM_PATH_SHAPES.items():
+        if label == "nfm":           # the same shape as usb
+            adpcm_in[label] = adpcm_in["usb"]
+            continue
+        state, blocks = adpcm_input(torch, gen, dev, shape, blocks=4)
+        adpcm_case(label, state, blocks)
+        adpcm_in[label] = (state, blocks[0])
+    edge = torch.as_tensor(boundary_strides(adpcm.IMA_STEP_TABLE,
+                                            adpcm.STATE_STRIDE), device=dev)
+    adpcm_case("boundary strides", adpcm.adpcm_init((edge.shape[0],), device=dev),
+               [edge, torch.flip(edge, dims=(0,)).contiguous()])
+    state = adpcm_in["usb"][0]
     st_c, (by_c, sd_c) = adpcm.adpcm_encode(state, samples)
     st_h, (by_h, sd_h) = adpcm.adpcm_encode(tuple(s.cpu() for s in state),
                                             samples.cpu())
@@ -317,23 +473,39 @@ def main() -> int:
     check(iir_err <= iir_tol and torch.equal(ix_k, ix_p),
           f"IIR kernel disagrees: {iir_err} > {iir_tol}")
 
-    # AGC at the NFM bank's shape: (1024, 2400), FAST, 48 chunks of 50,
-    # channel levels spread over 80 dB and random start states
-    agc_x = (torch.randn(M, 2400, generator=gen, device=dev)
-             * 10.0 ** (torch.rand(M, 1, generator=gen, device=dev) * 4 - 3))
-    agc_st = (torch.rand(M, generator=gen, device=dev) * 100 + 0.01,
-              torch.randint(0, 9, (M,), generator=gen, device=dev,
-                            dtype=torch.int32))
-    (g_k, h_k), a_k = agc.agc_apply(agc_st, agc.FAST, agc_x, 50, device=dev)
-    (g_p, h_p), a_p = agc.agc_apply_plain(agc_st, agc.FAST, agc_x, 50)
-    torch.cuda.synchronize()
-    state_same = torch.equal(g_k, g_p) and torch.equal(h_k, h_p)
-    agc_err = float((a_k - a_p).abs().max())
-    agc_tol = AGC_RTOL * float(a_p.abs().max())
-    log(f"[check] agc x{tuple(agc_x.shape)} FAST: gain and hang identical = "
-        f"{state_same}; audio max_abs_err {agc_err:.3e} (tolerance {agc_tol:.3e})")
-    check(state_same, "AGC kernel gain or hang differs from the plain version")
-    check(agc_err <= agc_tol, f"AGC kernel audio disagrees: {agc_err} > {agc_tol}")
+    # AGC at every path's shape, channel levels spread over 80 dB and random
+    # start states; then all-zero rows and silence-to-full-scale steps from
+    # the initial state, and rows longer than one shared-memory tile
+    agc_cases = {**AGC_PATH_CASES, "long rows": ("FAST", (4, 20000), 50)}
+    agc_in = {}                    # label: (profile, state, x, chunk)
+    agc_err = 0.0
+    for label, (pname, shape, chunk) in agc_cases.items():
+        st, x = agc_input(torch, gen, dev, shape)
+        agc_in[label] = (getattr(agc, pname), st, x, chunk)
+    step = torch.zeros(8, 2400, device=dev)
+    step[2:4, 2200:] = 1.0                         # silence, then full scale
+    step[4:6, 600:650] = -1.0                      # a pulse: hang runs out
+    step[6:] = torch.randn(2, 2400, generator=gen, device=dev) * 0.01
+    agc_in["zeros and steps"] = (agc.FAST, agc.agc_init(agc.FAST, (8,), device=dev),
+                                 step, 50)
+    for label, (prof, st, x, chunk) in agc_in.items():
+        (g_k, h_k), a_k = agc.agc_apply(st, prof, x, chunk, device=dev)
+        (g_p, h_p), a_p = agc.agc_apply_plain(st, prof, x, chunk)
+        torch.cuda.synchronize()
+        state_same = torch.equal(g_k, g_p) and torch.equal(h_k, h_p)
+        err = float((a_k - a_p).abs().max())
+        agc_err = max(agc_err, err)
+        log(f"[check] agc {label} x{tuple(x.shape)} chunk {chunk}: gain and hang "
+            f"identical = {state_same}; audio identical = {torch.equal(a_k, a_p)} "
+            f"(max_abs_err {err:.3e})")
+        check(state_same, f"AGC kernel gain or hang differs ({label})")
+        check(torch.equal(a_k, a_p), f"AGC kernel audio differs ({label})")
+    (g_s, h_s), _ = agc.agc_apply(agc_in["zeros and steps"][1], agc.FAST, step, 50,
+                                  device=dev)
+    check(bool((g_s[:2] == agc.FAST.max_gain).all()) and bool((h_s[2:4] > 0).all())
+          and bool((h_s[4:6] == 0).all()),
+          f"AGC scene: zero rows at max gain, steps armed, pulses run out: "
+          f"{g_s.tolist()} {h_s.tolist()}")
 
     # -- 4. small banks on the card against the CPU plain path ---------------
     # Every mode; usb and am are compared from block 0 on.  In the other
@@ -417,6 +589,20 @@ def main() -> int:
             check(rds_err <= rds_tol, "small wfm bank: card and CPU rds disagree")
 
     # -- 5. the paths at full width ------------------------------------------
+    # record the shapes the paths hand the AGC and the ADPCM encoder (the
+    # stages call them through their modules)
+    seen_agc, seen_adpcm = set(), set()
+    agc_apply, adpcm_encode = agc.agc_apply, adpcm.adpcm_encode
+
+    def agc_recorded(state, profile, x, chunk=agc.CHUNK, device="cuda"):
+        seen_agc.add((profile, tuple(x.shape), chunk))
+        return agc_apply(state, profile, x, chunk, device=device)
+
+    def adpcm_recorded(state, x):
+        seen_adpcm.add(tuple(x.shape))
+        return adpcm_encode(state, x)
+
+    agc.agc_apply, adpcm.adpcm_encode = agc_recorded, adpcm_recorded
     paths = {}
     launches_by_path = {}
     n_blocks = WARMUP_BLOCKS + TIMED_BLOCKS
@@ -503,6 +689,15 @@ def main() -> int:
     check(snr > TONE_SNR_MIN_DB, f"cfg1: tone SNR {snr:.1f} dB")
     paths["cfg1"] = report("cfg1", smi, wall, TIMED_BLOCKS, prog.block,
                            CFG1_FS, peak)
+    agc.agc_apply, adpcm.adpcm_encode = agc_apply, adpcm_encode
+    log(f"[shapes] agc on the paths: {sorted((s, c) for _, s, c in seen_agc)}; "
+        f"adpcm_encode on the paths: {sorted(seen_adpcm)}")
+    # phase 3 checked exactly these; an empty record fails here too
+    path_agc = {(getattr(agc, p), s, c) for p, s, c in AGC_PATH_CASES.values()}
+    check(seen_agc == path_agc, f"AGC shapes on the paths {seen_agc} are not "
+          f"the expected {path_agc}")
+    check(seen_adpcm == set(ADPCM_PATH_SHAPES.values()), f"ADPCM shapes on the "
+          f"paths {seen_adpcm} are not the expected {set(ADPCM_PATH_SHAPES.values())}")
     print(json.dumps({"card": smi, "paths": paths}), flush=True)
 
     # -- 6. kernel timings at the main-path shapes ------------------------------
@@ -517,52 +712,138 @@ def main() -> int:
     v_conv = F.conv1d(lhs, wconv, groups=M)
     conv_err = float((torch.complex(v_conv[0], v_conv[1]).T - v_plain).abs().max())
     fold_lib_ms = time_cuda(lambda: F.conv1d(lhs, wconv, groups=M), iters, torch)
-    adpcm_ms = time_cuda(lambda: adpcm.encode_strides(lanes_in, prev, idxs, device=dev),
-                         iters, torch)
-    adpcm_plain_ms = time_cuda(lambda: adpcm.encode_strides_plain(lanes_in, prev, idxs),
-                               3, torch)
     iir_ms = time_cuda(lambda: iir.first_order_apply(iir_st, *deemph, iir_x, device=dev),
                        iters, torch)
     iir_plain_ms = time_cuda(lambda: iir.first_order_apply_plain(iir_st, *deemph, iir_x),
                              iters, torch)
-    agc_ms = time_cuda(lambda: agc.agc_apply(agc_st, agc.FAST, agc_x, 50, device=dev),
-                       iters, torch)
-    agc_plain_ms = time_cuda(lambda: agc.agc_apply_plain(agc_st, agc.FAST, agc_x, 50),
-                             5, torch)
-
     fold_bytes = u.numel() * 8 + bank2.numel() * 4 + v_plain.numel() * 8
     fold_ops = 4 * p_taps * v_plain.numel()        # re+im: P mul-adds each
-    lanes = lanes_in.shape[0]
-    adpcm_bytes = lanes_in.numel() * 2 + 2 * lanes * 4 + lanes * adpcm.STATE_STRIDE
-    adpcm_ops = 25 * 2 * adpcm.STATE_STRIDE * lanes  # ~25 int ops per nibble
     # IIR: x in, y out, four (rows,) state vectors; per sample 2 mul + 1 add
     # for c[n] and one multiply-add for y[n]
     iir_bytes = iir_x.numel() * 8 + 4 * M * 4
     iir_ops = 5 * iir_x.numel()
-    # AGC: x in, y out, state in and out; per sample |x| and max, the ramp
-    # (divide, multiply, add) and the multiply
-    agc_bytes = agc_x.numel() * 8 + 4 * M * 4
-    agc_ops = 6 * agc_x.numel()
 
-    def bound(nbytes, nops):
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+    def bound(nbytes, nops, ops_per_s=FP32_OPS_PER_S):
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
     fold_bound, fold_by = bound(fold_bytes, fold_ops)
-    adpcm_bound, adpcm_by = bound(adpcm_bytes, adpcm_ops)
     iir_bound, iir_by = bound(iir_bytes, iir_ops)
-    agc_bound, agc_by = bound(agc_bytes, agc_ops)
     log(f"[time] {smi}: fold kernel {fold_ms:.5f} ms, bound {fold_bound:.5f} ms "
         f"({fold_by}: {fold_bytes} B, {fold_ops} flop), plain {fold_plain_ms:.5f} ms, "
         f"depthwise F.conv1d {fold_lib_ms:.5f} ms (max diff {conv_err:.2e})")
-    log(f"[time] {smi}: adpcm kernel {adpcm_ms:.5f} ms, bound {adpcm_bound:.5f} ms "
-        f"({adpcm_by}: {adpcm_bytes} B, ~{adpcm_ops} int ops; serial chain of "
-        f"{2 * adpcm.STATE_STRIDE} nibble steps per lane), plain {adpcm_plain_ms:.5f} ms")
     log(f"[time] {smi}: iir kernel {iir_ms:.5f} ms, bound {iir_bound:.5f} ms "
         f"({iir_by}: {iir_bytes} B, {iir_ops} flop), plain {iir_plain_ms:.5f} ms")
-    log(f"[time] {smi}: agc kernel {agc_ms:.5f} ms, bound {agc_bound:.5f} ms "
-        f"({agc_by}: {agc_bytes} B, {agc_ops} flop; serial chain of "
-        f"{agc_x.shape[1] // 50} chunk steps per row), plain {agc_plain_ms:.5f} ms")
+
+    # the two recurrences at every path's shape, warm and cold, beside the
+    # roofline bound (bytes or operations) and the time of their serial
+    # chain: its time per step, measured below as a slope, times the steps
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    int32_per_s = INT32_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6
+    flush = torch.ones(L2_FLUSH_BYTES // 4, device=dev)
+
+    def timed(label, name, fn, args, nbytes, nops, ops_per_s, chain):
+        """fn(*args) timed warm, then cold: one copy of args per launch."""
+        warm = time_cuda(lambda: fn(*args), iters, torch)
+        copies = [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                  for _ in range(COLD_COPIES)]
+        cold = time_cuda([lambda c=c: fn(*c) for c in copies], COLD_COPIES,
+                         torch, flush)
+        del copies
+        b, by = bound(nbytes, nops, ops_per_s)
+        log(f"[time] {smi}: {name} {label}: warm {warm:.5f} ms, cold {cold:.5f} "
+            f"ms; bound {b:.5f} ms ({by}: {nbytes} B, {nops} ops at "
+            f"{ops_per_s:.4g}/s), chain {chain:.5f} ms; cold share of the bound "
+            f"{b / cold:.3f}, of the chain {chain / cold:.3f}")
+        return {"ms": warm, "cold_ms": cold, "bound_ms": b, "bound_by": by,
+                "chain_bound_ms": chain}
+
+    # the floor of any launch: an empty kernel, back to back
+    launch_ms = time_cuda(lambda: torch.cuda._sleep(0), iters, torch)
+    log(f"[time] {smi}: empty kernel (torch.cuda._sleep(0)) back to back "
+        f"{launch_ms:.5f} ms")
+
+    # AGC chain per chunk: one-row launches of 48 and 96 chunks.  One row's
+    # parallel passes spread over a CTA, so the difference is 48 steps of
+    # the recurrence plus those passes' small share: an upper estimate
+    one_row = {}
+    for n in (2400, 4800):
+        st1, x1 = agc_input(torch, gen, dev, (n,))
+        one_row[n] = time_cuda(lambda: agc.agc_apply(st1, agc.FAST, x1, 50, device=dev),
+                               STEP_ITERS, torch)
+    agc_step_ms = (one_row[4800] - one_row[2400]) / ((4800 - 2400) // 50)
+    log(f"[time] {smi}: agc one row, FAST: 48 chunks {one_row[2400]:.5f} ms, "
+        f"96 chunks {one_row[4800]:.5f} ms: {agc_step_ms * 1e3:.5f} us = "
+        f"{agc_step_ms * clock_mhz * 1e3:.1f} cycles a chunk at {clock_mhz:.0f} MHz")
+
+    agc_rows = {}
+    for label in AGC_PATH_CASES:
+        prof, st, x, chunk = agc_in[label]
+        agc_rows[label] = dict(shape=list(x.shape), chunk=chunk, **timed(
+            label, "agc kernel",
+            lambda g, h, x, prof=prof, chunk=chunk: agc.agc_apply(
+                (g, h), prof, x, chunk, device=dev), (*st, x),
+            agc_bytes(tuple(x.shape)), 6 * x.numel(), FP32_OPS_PER_S,
+            agc_step_ms * (x.shape[-1] // chunk)))
+    prof, st, x, chunk = agc_in["nfm"]
+    agc_plain_ms = time_cuda(lambda: agc.agc_apply_plain(st, prof, x, chunk), 5, torch)
+    log(f"[time] {smi}: agc plain nfm {agc_plain_ms:.5f} ms")
+
+    # ADPCM chain per nibble: the recurrence alone (explicit start states)
+    # at the bank's 3072 lanes, in lanes of 200 nibbles and, in the short
+    # build, of 104.  The slope holds only if both builds compiled the main
+    # loop alike, and the short build must compute the plain recurrence
+    lanes = lanes_in.shape[0]
+    short_in = int16_audio(torch, gen, dev, lanes, 2 * SHORT_STRIDE)
+    short_out = torch.empty((lanes, SHORT_STRIDE), dtype=torch.uint8, device=dev)
+
+    def launch_short():
+        adpcm_short.launch(short_in.data_ptr(), None, None, prev.data_ptr(),
+                           idxs.data_ptr(), short_out.data_ptr(), None, None,
+                           None, lanes, 1, kernels.stream_handle(dev))
+
+    launch_short()
+    check(torch.equal(short_out, adpcm.encode_strides_plain(short_in, prev, idxs)),
+          f"ADPCM kernel with {SHORT_STRIDE}-byte strides differs from the plain "
+          f"recurrence")
+    loop_instrs = sass_loop_instructions(kernels.ADPCM.library_path())
+    short_loop = sass_loop_instructions(adpcm_short.library_path())
+    check(loop_instrs == short_loop, f"ADPCM builds differ in their main loop: "
+          f"{loop_instrs} and {short_loop} instructions")
+    short_ms = time_cuda(launch_short, iters, torch)
+    strides_ms = time_cuda(
+        lambda: adpcm.encode_strides(lanes_in, prev, idxs, device=dev), iters, torch)
+    adpcm_step_ms = strides_ms - short_ms
+    adpcm_step_ms /= 2 * (adpcm.STATE_STRIDE - SHORT_STRIDE)
+    # operations: the instructions the build issues a nibble, counted in its
+    # SASS, over the int32 issue rate, and 3 a sample in the estimate
+    nibble_instrs = loop_instrs / ADPCM_LOOP_NIBBLES
+    log(f"[time] {smi}: adpcm recurrence alone, {lanes} lanes: {2 * SHORT_STRIDE} "
+        f"nibbles {short_ms:.5f} ms, 200 nibbles {strides_ms:.5f} ms (bytes "
+        f"identical to the plain recurrence; main loop {loop_instrs} SASS "
+        f"instructions in both builds, {nibble_instrs:.2f} a nibble): "
+        f"{adpcm_step_ms * 1e6:.3f} ns = {adpcm_step_ms * clock_mhz * 1e3:.1f} "
+        f"cycles a nibble at {clock_mhz:.0f} MHz")
+
+    adpcm_rows = {}
+    for label, shape in ADPCM_PATH_SHAPES.items():
+        st, x = adpcm_in[label]
+        if label == "nfm":                  # the same shape as usb
+            adpcm_rows[label] = adpcm_rows["usb"]
+            continue
+        nibbles = x.numel()                 # a nibble per sample
+        adpcm_rows[label] = dict(shape=list(shape), lanes=nibbles // (2 * adpcm.STATE_STRIDE), **timed(
+            label, "adpcm_encode kernel",
+            lambda p0, i0, x: adpcm.adpcm_encode((p0, i0), x), (*st, x),
+            adpcm_bytes(shape), round(nibble_instrs * nibbles) + 3 * x.numel(),
+            int32_per_s, adpcm_step_ms * 2 * adpcm.STATE_STRIDE))
+    st, x = adpcm_in["usb"]
+    adpcm_plain_ms = time_cuda(lambda: adpcm.adpcm_encode_plain(st, x), 3, torch)
+    log(f"[time] {smi}: adpcm_encode plain (1024, 600) {adpcm_plain_ms:.5f} ms")
+    agc_main, adpcm_main = agc_rows["nfm"], adpcm_rows["nfm"]
 
     def total(name):
         return sum(v[name] for v in launches_by_path.values())
@@ -577,13 +858,15 @@ def main() -> int:
          "launches": total("fold.cu"), "launches_by_path": by_path("fold.cu"),
          "max_abs_err": fold_err, "ms": fold_ms, "plain_ms": fold_plain_ms,
          "bound_ms": fold_bound, "bound_by": fold_by, "library_ms": fold_lib_ms},
-        {"name": "adpcm_encode_strides", "route": "cuda",
+        {"name": "adpcm_encode", "route": "cuda",
          "source": "openwebrx_tpu_torch/csrc/adpcm.cu",
-         "replaces": "openwebrx_tpu/ops/adpcm.py:169",
+         "replaces": "openwebrx_tpu/ops/adpcm.py:131",
          "launches": total("adpcm.cu"), "launches_by_path": by_path("adpcm.cu"),
-         "max_abs_err": float(adpcm_err), "ms": adpcm_ms,
-         "plain_ms": adpcm_plain_ms, "bound_ms": adpcm_bound,
-         "bound_by": adpcm_by, "library_ms": None},
+         "max_abs_err": float(adpcm_err), "ms": adpcm_main["ms"],
+         "cold_ms": adpcm_main["cold_ms"], "plain_ms": adpcm_plain_ms,
+         "bound_ms": adpcm_main["bound_ms"], "bound_by": adpcm_main["bound_by"],
+         "chain_bound_ms": adpcm_main["chain_bound_ms"], "library_ms": None,
+         "encode_strides_ms": strides_ms, "by_shape": adpcm_rows},
         {"name": "first_order_iir", "route": "cuda",
          "source": "openwebrx_tpu_torch/csrc/iir.cu",
          "replaces": "openwebrx_tpu/ops/iir.py:18",
@@ -594,8 +877,11 @@ def main() -> int:
          "source": "openwebrx_tpu_torch/csrc/agc.cu",
          "replaces": "openwebrx_tpu/ops/agc.py:58",
          "launches": total("agc.cu"), "launches_by_path": by_path("agc.cu"),
-         "max_abs_err": agc_err, "ms": agc_ms, "plain_ms": agc_plain_ms,
-         "bound_ms": agc_bound, "bound_by": agc_by, "library_ms": None},
+         "max_abs_err": agc_err, "ms": agc_main["ms"],
+         "cold_ms": agc_main["cold_ms"], "plain_ms": agc_plain_ms,
+         "bound_ms": agc_main["bound_ms"], "bound_by": agc_main["bound_by"],
+         "chain_bound_ms": agc_main["chain_bound_ms"], "library_ms": None,
+         "by_shape": agc_rows},
     ]}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Device times of the port's AGC and ADPCM functions in two checkouts, on
+one card.
+
+Runs ``agc.agc_apply`` and ``adpcm.adpcm_encode`` of this checkout and of
+another (``--other``, e.g. a parent commit unpacked with ``git archive``
+into the git-ignored ``build/``) at the shapes the full-width paths give
+them (``chip_smoke.AGC_PATH_CASES`` and ``ADPCM_PATH_SHAPES``, on
+``chip_smoke``'s seeded inputs), in alternating processes: other, this, this, other (``--rounds``
+times).  Each process builds its checkout's kernels and times every
+function warm (back-to-back launches on the same inputs) and cold (each
+launch on its own copy of the inputs, with the L2 cache flushed first),
+with ``chip_smoke.time_cuda`` of this checkout.  Both sides compute the
+whole function: for a checkout whose ``adpcm_encode`` is several launches,
+the time covers all of them.  ``encode_strides`` (the recurrence alone on
+explicit start states) is timed too.  Every run is printed and written to
+``--out``.
+
+Usage (from the root of a checkout, on a machine with a card)::
+
+    python3 compare_kernels.py --other PATH [--rounds 1]
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+WARM_ITERS = 50
+
+
+def child(root: str) -> int:
+    """Time the functions of the checkout at ``root``; print one JSON line."""
+    sys.path[0] = root                     # that checkout's package, not ours
+    spec = importlib.util.spec_from_file_location("smoke", HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_kernels: no CUDA device available", file=sys.stderr)
+        return 1
+    from openwebrx_tpu_torch import kernels
+    from openwebrx_tpu_torch.ops import adpcm, agc
+
+    for k in kernels.ALL:
+        k.build()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    flush = torch.ones(smoke.L2_FLUSH_BYTES // 4, device=dev)
+
+    def both(fn, args):
+        warm = smoke.time_cuda(lambda: fn(*args), WARM_ITERS, torch)
+        copies = [tuple(a.clone() for a in args) for _ in range(smoke.COLD_COPIES)]
+        cold = smoke.time_cuda([lambda c=c: fn(*c) for c in copies],
+                               smoke.COLD_COPIES, torch, flush)
+        return {"ms": warm, "cold_ms": cold}
+
+    out = {"root": root, "agc": {}, "adpcm_encode": {}}
+    for label, (pname, shape, chunk) in smoke.AGC_PATH_CASES.items():
+        st, x = smoke.agc_input(torch, gen, dev, shape)
+        prof = getattr(agc, pname)
+        out["agc"][label] = both(
+            lambda g, h, x, prof=prof, chunk=chunk: agc.agc_apply(
+                (g, h), prof, x, chunk, device=dev), (*st, x))
+    for label, shape in smoke.ADPCM_PATH_SHAPES.items():
+        if shape in [tuple(v["shape"]) for v in out["adpcm_encode"].values()]:
+            continue                       # nfm: the same shape as usb
+        st, (x,) = smoke.adpcm_input(torch, gen, dev, shape)
+        out["adpcm_encode"][label] = dict(shape=list(shape), **both(
+            lambda p0, i0, x: adpcm.adpcm_encode((p0, i0), x), (*st, x)))
+    lanes = smoke.int16_audio(torch, gen, dev, 3072, 200)
+    prev = torch.randint(-32768, 32767, (lanes.shape[0],), generator=gen,
+                         device=dev, dtype=torch.int32)
+    idxs = torch.randint(0, 89, (lanes.shape[0],), generator=gen, device=dev,
+                         dtype=torch.int32)
+    out["encode_strides"] = both(
+        lambda s, p, i: adpcm.encode_strides(s, p, i, device=dev), (lanes, prev, idxs))
+    print(json.dumps(out))
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", help="root of the checkout to compare with")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="rounds of other, this, this, other")
+    ap.add_argument("--out", default="build/compare_kernels.json")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        return child(args.child)
+    if not args.other:
+        ap.error("--other is required")
+    here, other = str(HERE), str(Path(args.other).resolve())
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(f"[compare] {smi}: other={other} this={here}", flush=True)
+    runs = []
+    for _ in range(args.rounds):
+        for root in (other, here, here, other):
+            res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--child", root], capture_output=True,
+                                 text=True, timeout=900)
+            if res.returncode != 0:
+                print(res.stdout + res.stderr, file=sys.stderr)
+                return res.returncode
+            rec = json.loads(res.stdout.strip().splitlines()[-1])
+            rec["side"] = "this" if root == here else "other"
+            runs.append(rec)
+            print(f"[compare] run {len(runs)} {rec['side']}: " + json.dumps(
+                {k: rec[k] for k in ("agc", "adpcm_encode", "encode_strides")}),
+                flush=True)
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps({"card": smi, "runs": runs}, indent=1))
+    print(json.dumps({"card": smi, "runs": len(runs)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -40,13 +40,16 @@ def _nvcc() -> str:
 
 
 class CudaKernel:
-    """One ``csrc/*.cu`` source: its build, its C entry point and the
-    number of times the port launched it (``launches``)."""
+    """One ``csrc/*.cu`` source: its build (with optional preprocessor
+    ``defines``, ``NAME=VALUE``), its C entry point and the number of times
+    the port launched it (``launches``)."""
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
+    def __init__(self, source: str, symbol: str, argtypes: list,
+                 defines: tuple[str, ...] = ()):
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = argtypes
+        self.flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
         self.launches = 0
         self.build_log = ""
         self._fn = None
@@ -55,7 +58,7 @@ class CudaKernel:
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes()
-                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                           + " ".join(self.flags).encode()).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}_{h}.so"
 
     def build(self) -> float:
@@ -69,7 +72,7 @@ class CudaKernel:
             tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
             t0 = time.perf_counter()
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+                [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)],
                 capture_output=True, text=True)
             self.build_log = proc.stdout + proc.stderr
             if proc.returncode != 0:
@@ -110,8 +113,10 @@ _F = ctypes.c_float
 
 # fold_launch(u, bank, v, n_time, m, p_taps, stream)
 FOLD = CudaKernel("fold.cu", "fold_launch", [_P, _P, _P, _I, _I, _I, _P])
-# adpcm_launch(samples, prev, idxs, out, lanes, stream)
-ADPCM = CudaKernel("adpcm.cu", "adpcm_launch", [_P, _P, _P, _P, _I, _P])
+# adpcm_launch(samples, pred0, idx0, prev, idxs, out, stride, pred, idx,
+#              lanes, strides, stream)
+ADPCM = CudaKernel("adpcm.cu", "adpcm_launch",
+                   [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P])
 
 # iir_launch(x, x_prev, y_prev, y, x_last, y_last, rows, n, b0, b1, a1, stream)
 IIR = CudaKernel("iir.cu", "iir_launch",

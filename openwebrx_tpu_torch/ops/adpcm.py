@@ -7,10 +7,14 @@ then ADPCM bytes (two nibbles per byte, low nibble first).
 The audio encoder restarts its adaptation at every STATE_STRIDE-byte stride
 from a reseed state that rides the wire in the sync header, so strides are
 independent: the 100-step recurrence runs with one lane per (channel,
-stride).  On a CUDA tensor that recurrence is the hand-written kernel
-``csrc/adpcm.cu`` (:func:`encode_strides`); the reseed states are computed
-here in PyTorch exactly as the reference computes them.  Bytes and stride
-states must equal the reference bit for bit on identical int16 input.
+stride).  On a CUDA tensor :func:`adpcm_encode` is one launch of the
+hand-written kernel ``csrc/adpcm.cu``, which computes the reseed states,
+runs every lane's recurrence and writes the stride states and the carried
+state; :func:`encode_strides` runs the same kernel on explicit start
+states.  On a CPU tensor both are their plain versions
+(:func:`adpcm_encode_plain`, :func:`encode_strides_plain`).  Bytes, stride
+states and carried state must equal the reference bit for bit on
+identical int16 input.
 """
 
 from __future__ import annotations
@@ -88,13 +92,13 @@ def _encode_nibble(predictor, index, sample, table):
 
 def encode_strides_plain(samples: torch.Tensor, prev: torch.Tensor,
                          idxs: torch.Tensor) -> torch.Tensor:
-    """Plain version of the recurrence: samples (L, 2·STRIDE) int16,
-    prev/idxs (L,) int32 → bytes (L, STRIDE) uint8."""
-    x = samples.to(torch.int32).reshape(-1, STATE_STRIDE, 2)
+    """Plain version of the recurrence: samples (L, 2·K) int16 (K is
+    STATE_STRIDE on the paths), prev/idxs (L,) int32 → bytes (L, K) uint8."""
+    x = samples.to(torch.int32).reshape(samples.shape[0], samples.shape[1] // 2, 2)
     table = _step_table(torch.int32, samples.device)
     pred, idx = prev, idxs
     out = []
-    for i in range(STATE_STRIDE):
+    for i in range(x.shape[1]):
         pred, idx, lo = _encode_nibble(pred, idx, x[:, i, 0], table)
         pred, idx, hi = _encode_nibble(pred, idx, x[:, i, 1], table)
         out.append((lo | (hi << 4)).to(torch.uint8))
@@ -124,11 +128,12 @@ def encode_strides(samples: torch.Tensor, prev: torch.Tensor,
     if lanes == 0:
         return out
     if not (samples.is_contiguous() and prev.is_contiguous()
-            and idxs.is_contiguous() and samples.data_ptr() % 4 == 0):
-        raise ValueError("encode_strides kernel needs contiguous, 4-byte "
-                         "aligned inputs")
-    ADPCM.launch(samples.data_ptr(), prev.data_ptr(), idxs.data_ptr(),
-                 out.data_ptr(), lanes, stream_handle(dev))
+            and idxs.is_contiguous() and samples.data_ptr() % 16 == 0):
+        raise ValueError("the ADPCM kernel needs contiguous inputs and "
+                         "16-byte aligned samples")
+    ADPCM.launch(samples.data_ptr(), None, None, prev.data_ptr(),
+                 idxs.data_ptr(), out.data_ptr(), None, None, None, lanes, 1,
+                 stream_handle(dev))
     return out
 
 
@@ -136,19 +141,16 @@ def _estimate_index(xs: torch.Tensor) -> torch.Tensor:
     """Per-stride step-index estimate: the table index whose step best
     tracks the stride's mean |Δx|.  The sum of |Δx| is an exact integer
     (below 2²⁴), divided once in float32 as the reference's mean does."""
-    total = torch.diff(xs, dim=-1).abs().sum(dim=-1)
-    md = total.to(torch.float32) / float(xs.shape[-1] - 1)
+    total = torch.diff(xs, dim=-1).abs().sum(dim=-1).to(torch.float32)
+    # a tensor divisor: on the card a scalar one becomes a reciprocal multiply
+    md = total / torch.full_like(total, xs.shape[-1] - 1)
     table = _step_table(torch.float32, xs.device)
     return torch.clamp(torch.searchsorted(table, md), 0, 88).to(torch.int32)
 
 
-def adpcm_encode(state, samples: torch.Tensor):
-    """Stride-parallel IMA encode for the audio path: int16 samples
-    (..., 2N) with N % STATE_STRIDE == 0 → (new_state, (bytes (..., N)
-    uint8, stride (..., N/STATE_STRIDE) int32)).
-
-    stride[..., i] is the packed start state of stride i+1; stride 0 starts
-    from the carried block state."""
+def adpcm_encode_plain(state, samples: torch.Tensor):
+    """Plain version of :func:`adpcm_encode`: the reseed states in PyTorch
+    around :func:`encode_strides_plain`."""
     batch = samples.shape[:-1]
     n = samples.shape[-1] // 2                        # bytes this block
     s = n // STATE_STRIDE                             # strides this block
@@ -160,13 +162,55 @@ def adpcm_encode(state, samples: torch.Tensor):
     prev = torch.cat([pred0[..., None], xs[..., :-1, -1]], dim=-1)
     est = _estimate_index(xs)
     idxs = torch.cat([idx0[..., None], est[..., :-1]], dim=-1)
-    bytes_ = encode_strides(x16.reshape(-1, 2 * STATE_STRIDE).contiguous(),
-                            prev.reshape(-1).contiguous(),
-                            idxs.reshape(-1).contiguous(),
-                            device=samples.device)
+    bytes_ = encode_strides_plain(x16.reshape(-1, 2 * STATE_STRIDE),
+                                  prev.reshape(-1), idxs.reshape(-1))
     bytes_ = bytes_.reshape(*batch, n)
     stride = pack_codec_state(xs[..., :, -1] & 0xFFFF, est)
     new_state = (xs[..., -1, -1], est[..., -1])
+    return new_state, (bytes_, stride)
+
+
+def adpcm_encode(state, samples: torch.Tensor):
+    """Stride-parallel IMA encode for the audio path: int16 samples
+    (..., 2N) with N % STATE_STRIDE == 0 → (new_state, (bytes (..., N)
+    uint8, stride (..., N/STATE_STRIDE) int32)).
+
+    stride[..., i] is the packed start state of stride i+1; stride 0 starts
+    from the carried block state.  On a CUDA tensor one launch of the
+    kernel, on a CPU tensor :func:`adpcm_encode_plain`; the state must lie
+    on the samples' device."""
+    pred0, idx0 = state
+    dev = samples.device
+    check_on(dev, pred0, idx0)
+    batch = tuple(samples.shape[:-1])
+    two_n = samples.shape[-1] if samples.dim() else 0
+    if (samples.dtype != torch.int16 or two_n == 0
+            or two_n % (2 * STATE_STRIDE)):
+        raise ValueError(f"samples must be (..., 2N) int16 with N a positive "
+                         f"multiple of {STATE_STRIDE}, got "
+                         f"{tuple(samples.shape)} {samples.dtype}")
+    for name, t in (("predictor", pred0), ("index", idx0)):
+        if t.dtype != torch.int32 or tuple(t.shape) != batch:
+            raise ValueError(f"{name} state must be {batch} int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if dev.type == "cpu":
+        return adpcm_encode_plain(state, samples)
+    n = two_n // 2
+    s = n // STATE_STRIDE
+    bytes_ = torch.empty(batch + (n,), dtype=torch.uint8, device=dev)
+    stride = torch.empty(batch + (s,), dtype=torch.int32, device=dev)
+    new_state = (torch.empty(batch, dtype=torch.int32, device=dev),
+                 torch.empty(batch, dtype=torch.int32, device=dev))
+    lanes = bytes_.numel() // STATE_STRIDE
+    if lanes == 0:
+        return new_state, (bytes_, stride)
+    x = samples.contiguous()
+    pred0, idx0 = pred0.contiguous(), idx0.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("the ADPCM kernel needs 16-byte aligned samples")
+    ADPCM.launch(x.data_ptr(), pred0.data_ptr(), idx0.data_ptr(), None, None,
+                 bytes_.data_ptr(), stride.data_ptr(), new_state[0].data_ptr(),
+                 new_state[1].data_ptr(), lanes, s, stream_handle(dev))
     return new_state, (bytes_, stride)
 
 

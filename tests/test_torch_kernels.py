@@ -17,6 +17,7 @@ from openwebrx_tpu.ops import channelizer as jpfb
 from openwebrx_tpu.ops.pallas_fold import polyphase_fold as jax_fold
 from openwebrx_tpu.ops import agc as jagc
 from openwebrx_tpu.ops import iir as jiir
+from openwebrx_tpu_torch import kernels
 from openwebrx_tpu_torch.ops import adpcm as tadpcm
 from openwebrx_tpu_torch.ops import agc as tagc
 from openwebrx_tpu_torch.ops import iir as tiir
@@ -49,6 +50,28 @@ def _audio_int16(rng, channels, n):
     if channels > 2:
         a[2] = np.where(a[2] > 0, 1.0, -1.0)      # full-scale square wave
     return np.clip(a * 32767, -32768, 32767).astype(np.int16)
+
+
+def _stride_with_total(total):
+    """200 int16 samples whose 199 |differences| sum to ``total`` (up to
+    199 * 32767 + 1): steps of q or q + 1 with alternating signs."""
+    q, r = divmod(total, 2 * tadpcm.STATE_STRIDE - 1)
+    d = np.full(2 * tadpcm.STATE_STRIDE - 1, q)
+    d[:r] += 1
+    sign = np.where(np.arange(d.size) % 2 == 0, 1, -1)
+    x = -((q + 1) // 2) + np.concatenate([[0], np.cumsum(sign * d)])
+    assert np.abs(np.diff(x)).sum() == total and np.abs(x).max() <= 32767
+    return x.astype(np.int16)
+
+
+def _boundary_strides():
+    """(89, 600) int16: per table value k three strides whose sums of
+    |differences| are 199 k - 1, 199 k and 199 k + 1, i.e. mean |dx| just
+    below, at and just above the table entry."""
+    n1 = 2 * tadpcm.STATE_STRIDE - 1
+    return np.stack([np.concatenate([_stride_with_total(n1 * int(k) + d)
+                                     for d in (-1, 0, 1)])
+                     for k in tadpcm.IMA_STEP_TABLE])
 
 
 class TestFold:
@@ -158,6 +181,56 @@ class TestAdpcm:
             np.testing.assert_array_equal(a, b)
             assert sa == sb
 
+    def test_encode_boundary_strides_match_jax(self):
+        """Every table boundary of the index estimate (mean |dx| at, just
+        below and just above each step value): bytes, stride states and
+        carried state equal the reference's over two blocks."""
+        x = _boundary_strides()
+        jstate = jadpcm.adpcm_init((x.shape[0],))
+        tstate = tadpcm.adpcm_init((x.shape[0],), device="cpu")
+        for blk in (x, x[::-1].copy()):
+            jstate, (jb, js) = jadpcm.adpcm_encode(jstate, jnp.asarray(blk))
+            tstate, (tb, ts) = tadpcm.adpcm_encode(tstate, torch.from_numpy(blk))
+            np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+            np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+            for a, b in zip(tstate, jstate):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        # the estimates cover the whole table: index k at 199 k, k + 1 above
+        est = ts.numpy() & 0xFFFF
+        assert est.min() == 0 and est.max() == 88
+
+    @pytest.mark.parametrize("n", [104, 200, 392])
+    def test_plain_recurrence_matches_jax_sequential_encode(self, n):
+        """The plain recurrence on lanes of any even length (chip_smoke.py
+        times a build of the kernel with 52-byte strides against it) equals
+        the reference's exact sequential encode from the same states."""
+        rng = np.random.default_rng(n)
+        x = _audio_int16(rng, 6, n)
+        prev = rng.integers(-32768, 32767, 6, dtype=np.int32)
+        idxs = rng.integers(0, 89, 6, dtype=np.int32)
+        _, (jb, _) = jadpcm.adpcm_encode_seq(
+            (jnp.asarray(prev), jnp.asarray(idxs)), jnp.asarray(x))
+        tb = tadpcm.encode_strides_plain(torch.from_numpy(x), torch.from_numpy(prev),
+                                         torch.from_numpy(idxs))
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+
+    def test_build_defines_name_their_own_library(self):
+        short = kernels.CudaKernel("adpcm.cu", kernels.ADPCM.symbol,
+                                   kernels.ADPCM.argtypes,
+                                   defines=("ADPCM_STRIDE=52",))
+        assert short.flags == [*kernels.NVCC_FLAGS, "-DADPCM_STRIDE=52"]
+        assert kernels.ADPCM.flags == kernels.NVCC_FLAGS
+        assert short.library_path() != kernels.ADPCM.library_path()
+
+    def test_encode_rejects_bad_shapes(self):
+        st = tadpcm.adpcm_init((2,), device="cpu")
+        with pytest.raises(ValueError):
+            tadpcm.adpcm_encode(st, torch.zeros(2, 300, dtype=torch.int16))
+        with pytest.raises(ValueError):
+            tadpcm.adpcm_encode(st, torch.zeros(3, 200, dtype=torch.int16))
+        with pytest.raises(ValueError):
+            tadpcm.adpcm_encode(st, torch.zeros(2, 200, dtype=torch.int32))
+
     def test_default_device_needs_a_card(self):
         s = torch.zeros(3, 200, dtype=torch.int16)
         z = torch.zeros(3, dtype=torch.int32)
@@ -176,6 +249,55 @@ class TestAdpcm:
         got = tadpcm.encode_strides(lanes, prev, idxs, device=cuda_device)
         ref = tadpcm.encode_strides_plain(lanes, prev, idxs)
         assert torch.equal(got, ref)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("shape", [
+        (1024, 600),     # USB and NFM banks: 3072 lanes
+        (2048, 600),     # AM bank: 6144 lanes
+        (128, 9600),     # WFM bank: 6144 lanes, 48 strides a channel
+        (1200,),         # config #1: one channel, 6 lanes
+    ])
+    def test_fused_encode_matches_plain_on_card(self, cuda_device, shape):
+        """One launch against the plain composition, four blocks with the
+        state carried: bytes, stride states and state identical."""
+        rng = np.random.default_rng(sum(shape))
+        rows = int(np.prod(shape[:-1], dtype=np.int64))
+        kst = tuple(torch.from_numpy(v).to(cuda_device) for v in (
+            rng.integers(-32768, 32767, rows, dtype=np.int32).reshape(shape[:-1]),
+            rng.integers(0, 89, rows, dtype=np.int32).reshape(shape[:-1])))
+        pst = kst
+        for _ in range(4):
+            x = torch.from_numpy(_audio_int16(rng, rows, shape[-1]).reshape(shape)).to(cuda_device)
+            kst, (kb, ks) = tadpcm.adpcm_encode(kst, x)
+            pst, (pb, ps) = tadpcm.adpcm_encode_plain(pst, x)
+            assert torch.equal(kb, pb) and torch.equal(ks, ps)
+            assert all(torch.equal(a, b) for a, b in zip(kst, pst))
+
+    @pytest.mark.cuda
+    def test_short_stride_build_matches_plain_on_card(self, cuda_device):
+        short = kernels.CudaKernel("adpcm.cu", kernels.ADPCM.symbol,
+                                   kernels.ADPCM.argtypes,
+                                   defines=("ADPCM_STRIDE=52",))
+        rng = np.random.default_rng(52)
+        x = torch.from_numpy(_audio_int16(rng, 3072, 104)).to(cuda_device)
+        prev = torch.from_numpy(rng.integers(-32768, 32767, 3072,
+                                             dtype=np.int32)).to(cuda_device)
+        idxs = torch.from_numpy(rng.integers(0, 89, 3072,
+                                             dtype=np.int32)).to(cuda_device)
+        out = torch.empty((3072, 52), dtype=torch.uint8, device=cuda_device)
+        short.launch(x.data_ptr(), None, None, prev.data_ptr(), idxs.data_ptr(),
+                     out.data_ptr(), None, None, None, 3072, 1,
+                     kernels.stream_handle(cuda_device))
+        assert torch.equal(out, tadpcm.encode_strides_plain(x, prev, idxs))
+
+    @pytest.mark.cuda
+    def test_fused_encode_boundary_strides_on_card(self, cuda_device):
+        x = torch.from_numpy(_boundary_strides()).to(cuda_device)
+        st = tadpcm.adpcm_init((x.shape[0],), device=cuda_device)
+        kst, (kb, ks) = tadpcm.adpcm_encode(st, x)
+        pst, (pb, ps) = tadpcm.adpcm_encode_plain(st, x)
+        assert torch.equal(kb, pb) and torch.equal(ks, ps)
+        assert all(torch.equal(a, b) for a, b in zip(kst, pst))
 
 
 class TestIir:
@@ -247,6 +369,24 @@ class TestAgc:
         np.testing.assert_allclose(ts[0].numpy(), np.asarray(js[0]), rtol=1e-5)
         np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-6)
 
+    def test_plain_zero_rows_and_hang_step_match_jax(self):
+        """All-zero rows (the gain runs to max_gain) and a silence to full
+        scale step (attack arms the hang, which then counts down)."""
+        x = np.zeros((3, 4800), np.float32)
+        x[1, 2400:] = np.sin(np.arange(2400) * 0.3).astype(np.float32)
+        x[2, 1000:1500] = 1.0
+        for prof_j, prof_t in ((jagc.FAST, tagc.FAST), (jagc.SLOW, tagc.SLOW)):
+            js, jy = jagc.agc_apply(jagc.agc_init(prof_j, (3,)), prof_j,
+                                    jnp.asarray(x), 50)
+            ts, ty = tagc.agc_apply(tagc.agc_init(prof_t, (3,), device="cpu"),
+                                    prof_t, torch.from_numpy(x), 50, device="cpu")
+            np.testing.assert_array_equal(ts[1].numpy(), np.asarray(js[1]))
+            np.testing.assert_allclose(ts[0].numpy(), np.asarray(js[0]), rtol=1e-5)
+            np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-6)
+            assert float(ts[0][0]) == prof_t.max_gain       # silent row
+            assert int(ts[1][1]) > 0         # the step armed the hang
+            assert int(ts[1][2]) == 0        # it ran out after the pulse
+
     def test_rejects_bad_shapes(self):
         st = tagc.agc_init(tagc.SLOW, (2,), device="cpu")
         with pytest.raises(ValueError):
@@ -264,6 +404,10 @@ class TestAgc:
         ("FAST", 1024, 2400, 50),     # NFM bank
         ("SLOW", 1024, 600, 50),      # USB bank
         ("SLOW", 5, 4800, 48),        # odd chunk
+        ("SLOW", 2048, 600, 50),      # AM bank
+        ("FAST", 1, 4800, 50),        # config #1: one row
+        ("FAST", 2, 20000, 50),       # rows longer than one staged tile
+        ("SLOW", 3, 9999, 3),         # unaligned rows, tiled
     ])
     def test_kernel_matches_plain_on_card(self, cuda_device, profile, rows, n, chunk):
         """Final gain, hang counters and audio identical: the kernel
@@ -280,3 +424,17 @@ class TestAgc:
         assert torch.equal(kg, pg)
         assert torch.equal(kh, ph)
         assert torch.equal(ky, py)
+
+    @pytest.mark.cuda
+    def test_kernel_zero_rows_hang_step_and_scalar_row_on_card(self, cuda_device):
+        x = np.zeros((3, 4800), np.float32)
+        x[1, 2400:] = np.sin(np.arange(2400) * 0.3).astype(np.float32)
+        x[2, 1000:1500] = 1.0
+        for xs in (x, x[1]):           # a 0-dim state, as config #1 gives it
+            xt = torch.from_numpy(xs).to(cuda_device)
+            st = tagc.agc_init(tagc.FAST, xs.shape[:-1], device=cuda_device)
+            (kg, kh), ky = tagc.agc_apply(st, tagc.FAST, xt, 50, device=cuda_device)
+            (pg, ph), py = tagc.agc_apply_plain(st, tagc.FAST, xt, 50)
+            torch.cuda.synchronize()
+            assert torch.equal(kg, pg) and torch.equal(kh, ph)
+            assert torch.equal(ky, py)
