@@ -8,40 +8,55 @@ Run from the root of a checkout on a machine with a CUDA card::
 Phases (any failure raises and the script exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit, PyTorch's device name;
-2. build the four CUDA kernels from ``openwebrx_tpu_torch/csrc`` and a
+2. build the six CUDA kernels from ``openwebrx_tpu_torch/csrc`` and a
    second build of ``adpcm.cu`` with shorter strides, which phase 6 times
    (one ``nvcc`` per build, all started together);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the full-width paths give it: the polyphase fold and the first-order IIR
-   within stated tolerances; the ADPCM encoder (the fused ``adpcm_encode``
-   at every path's shape over four blocks with the state carried, strides
-   built on every boundary of its index estimate, and ``encode_strides``)
-   with bytes, stride states and carried state identical; the AGC at every
-   path's shape, on all-zero rows, on a silence-to-full-scale step and on
-   rows longer than one shared-memory tile, with gain, hang counters and
-   audio identical;
+   the full-width paths give it: the polyphase fold (M = 1024 and config
+   #2's M = 64) and the first-order IIR within stated tolerances; the ADPCM
+   encoder (the fused ``adpcm_encode`` at every path's shape over four
+   blocks with the state carried, strides built on every boundary of its
+   index estimate, and ``encode_strides``) with bytes, stride states and
+   carried state identical; the AGC at every path's shape, on all-zero
+   rows, on a silence-to-full-scale step and on rows longer than one
+   shared-memory tile, with gain, hang counters and audio identical; the
+   squelch at every path's shape and on silent rows, NaN rows and a burst
+   that arms the hang and runs it out, with power_db within
+   SQUELCH_DB_TOL and gates, hang and output bit-identical wherever the
+   power is not that close to the level; the exact IMA row encoder
+   (``adpcm_encode_seq``) bit-identical at the waterfall's shape, on 16
+   rows, on full-scale square waves and from random start states;
 4. small banks (M=64) on the card against the same banks on the CPU (plain
    versions), on the same input, in every mode: usb, nfm, am, rawam, sam
-   and wfm (gathered, at 384 kHz slices);
+   and wfm (gathered, at 384 kHz slices); the waterfall (``FftChain``,
+   float and compressed rows); every secondary and digital-voice chain on
+   two channels; a ``Fanout`` against its branches run alone;
 5. the paths at full width, each fed seeded device-resident IQ with every
    result fetched to host numpy, each with its kernels' launch counters set
    to 0 just before it and checked against the expected counts just after:
    the 1024-channel USB bank (BASELINE config #5), the 1024-channel NFM
-   bank, the 2048-channel AM bank, the 128-channel WFM bank (0.2 s blocks)
-   and BASELINE config #1 (2.4 MS/s NFM through ``build_program``).  Each
-   checks its outputs' shapes and dtypes, decodes its tones (≥ 15 dB SNR)
-   and logs ms/block, MS/s, its real-time multiple and peak memory; the
-   shapes the paths hand the AGC and the ADPCM encoder are recorded and
-   must be the ones phase 3 checked;
+   bank, the 2048-channel AM bank, the 128-channel WFM bank (0.2 s blocks),
+   BASELINE config #1 (2.4 MS/s NFM through ``build_program``), config #2
+   (a compressed 4096-bin waterfall, a PFB listener and a full-rate edge
+   dial on one 2.4 MS/s block), config #4 (a ``Fanout`` of 16 BPSK31 and 16
+   USB channels delivered in 6-block batches, checked against the CPU) and
+   the USB bank beside a 4096-bin waterfall of its 49.152 MS/s input.  Each
+   checks its outputs' shapes and dtypes, decodes its tones (≥ 15 dB SNR;
+   the waterfall's in their bins) and logs ms/block, MS/s, its real-time
+   multiple and peak memory; the shapes the paths hand the AGC, the ADPCM
+   encoders and the squelch are recorded and must be the ones phase 3
+   checked;
 6. kernel device times (CUDA events, launches queued ahead of the device)
    beside their bounds, the plain versions and, for the fold, one PyTorch
-   call computing the same function; the AGC and the ADPCM encoder at every
-   path's shape, warm and cold (each launch on its own copy of the inputs,
-   none of them in the L2 cache), beside the time of their serial chain,
+   call computing the same function; the fold and the IIR warm and cold;
+   the AGC, the ADPCM encoder and the squelch at every path's shape, warm
+   and cold (each launch on its own copy of the inputs, none of them in the
+   L2 cache); the recurrences beside the time of their serial chain,
    measured as a per-step slope: the AGC on one row of 48 and of 96
    chunks, the ADPCM recurrence in lanes of 104 and of 200 nibbles (the
    shorter build, first checked against the plain recurrence and for the
-   same main loop in its SASS).
+   same main loop in its SASS), the row encoder on one row of 2064 and of
+   4112 nibbles.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -89,12 +104,37 @@ STEP_ITERS = 200             # launches per time of a per-step slope
 SHORT_STRIDE = 52
 ADPCM_LOOP_NIBBLES = 32
 
-# The shapes the full-width paths give the AGC (profile, x, chunk) and the
-# ADPCM encoder (samples), as phase 5 records them
+SQUELCH_DB_TOL = 1e-3  # power_db: window sums in another order, re²+im² vs hypot²
+WF_DB_TOL = 1e-2       # waterfall rows card vs CPU, bins within 60 dB of the peak
+NEAR_PEAK_DB = 60.0
+CHAIN_RTOL = 1e-3      # × max|y|: secondary chains card vs CPU (cuFFT, cuDNN sums)
+DIBIT_AGREE = 0.98     # DV dibits card vs CPU: slicer thresholds may flip
+CFG2_FS = 2.4e6        # BASELINE config #2: 2.4 MS/s, waterfall + SSB
+CFG2_LISTENER = -262000.0   # fits PFB channel 57 (centre −262.5 kHz)
+CFG2_EDGE = 618000.0        # 18 kHz off its channel centre: served full rate
+CFG4_CHANNELS = 16     # BASELINE config #4: BPSK31 ×16 + USB ×16
+CFG4_BATCH = 6         # blocks per delivery batch
+WF_SIZE = 4096
+# rows of 2048 and 4096 bins (+10 pad, to a multiple of 8): the row
+# encoder's time per nibble is the slope between them
+SEQ_ROW = 4112
+SEQ_SHORT_ROW = 2064
+
+# The shapes the full-width paths give the AGC (profile, x, chunk), the
+# ADPCM encoders (samples) and the squelch (x, window), as phase 5 records
+# them
 AGC_PATH_CASES = {"usb": ("SLOW", (M, 600), 50), "nfm": ("FAST", (M, 2400), 50),
-                  "am": ("SLOW", (2 * M, 600), 50), "cfg1": ("FAST", (4800,), 50)}
+                  "am": ("SLOW", (2 * M, 600), 50), "cfg1": ("FAST", (4800,), 50),
+                  "cfg2": ("SLOW", (64, 600), 50), "cfg2 edge": ("SLOW", (16, 600), 50),
+                  "cfg4": ("SLOW", (16, 1536), 48)}
 ADPCM_PATH_SHAPES = {"usb": (M, 600), "nfm": (M, 600), "am": (2 * M, 600),
-                     "wfm": (128, 9600), "cfg1": (1200,)}
+                     "wfm": (128, 9600), "cfg1": (1200,), "cfg2": (64, 600),
+                     "cfg2 edge": (16, 600)}
+SQUELCH_PATH_CASES = {"usb": ((M, 600), 600), "nfm": ((M, 2400), 2400),
+                      "am": ((2 * M, 600), 600), "wfm": ((128, 50000), 12500),
+                      "cfg1": ((4800,), 2400), "cfg2": ((64, 600), 600),
+                      "cfg2 edge": ((16, 600), 600), "cfg4": ((16, 1536), 768)}
+ADPCM_SEQ_PATH_SHAPES = {(1, SEQ_ROW)}     # one waterfall row a block
 
 
 class SmokeFailure(RuntimeError):
@@ -224,6 +264,60 @@ def boundary_strides(table, stride):
     return out.astype(np.int16)
 
 
+def bits(torch, t):
+    """A tensor's bit pattern: NaN samples an open squelch passes on compare
+    equal, and +0.0 differs from −0.0."""
+    return (torch.view_as_real(t) if t.is_complex() else t).view(torch.int32)
+
+
+def squelch_input(torch, gen, dev, shape, window, dtype=None):
+    """Seeded squelch input: rows over 40 dB of level with per-row
+    thresholds within ±6 dB of it, a random (open, hang) start state, and
+    (with four rows or more) a silent row and a row half NaN."""
+    dtype = dtype or torch.complex64
+    rows, n = int(np.prod(shape[:-1])), shape[-1]
+    scale = 10.0 ** (torch.rand(rows, 1, generator=gen, device=dev) * 4 - 4)
+    x = torch.randn(rows, n, generator=gen, device=dev, dtype=dtype) * scale
+    if rows >= 4:
+        x[0] = 0
+        x[1, : n // 2] = float("nan")
+    level = (10 * torch.log10(scale[:, 0] ** 2)
+             + torch.rand(rows, generator=gen, device=dev) * 12 - 6)
+    lead = tuple(shape[:-1])
+    state = ((torch.rand(rows, generator=gen, device=dev) > 0.5).reshape(lead),
+             torch.randint(0, 3, (rows,), generator=gen, device=dev,
+                           dtype=torch.int32).reshape(lead))
+    return state, level.reshape(lead).contiguous(), x.reshape(shape).contiguous()
+
+
+def squelch_bytes(shape, window, complex_=True):
+    """x in, y out, power_db out, the level and (open, hang) in and out."""
+    n = int(np.prod(shape))
+    rows = n // shape[-1]
+    return (n * (8 if complex_ else 4) * 2 + rows * (shape[-1] // window) * 4
+            + rows * (4 + 2 * (1 + 4)))
+
+
+def seq_bytes(rows, ns):
+    """int16 samples and the start state in; bytes, stride states and the
+    final state out."""
+    return rows * (ns * 2 + ns // 2 + 4 * (ns // 200) + 4 * 4)
+
+
+def near_peak_err(got, ref):
+    """max |got − ref| (dB) over the bins within NEAR_PEAK_DB of each row's
+    peak."""
+    ref, got = np.atleast_2d(ref), np.atleast_2d(got)
+    mask = ref >= ref.max(axis=-1, keepdims=True) - NEAR_PEAK_DB
+    return float(np.abs(got - ref)[mask].max())
+
+
+def decoded_row(raw, nbytes, adpcm):
+    """One compressed waterfall row (its wire bytes) → dB."""
+    dec, _ = adpcm.adpcm_decode_np(bytes(raw[:nbytes]))
+    return dec[adpcm.COMPRESS_FFT_PAD_N:].astype(np.float64) / 100.0
+
+
 def agc_bytes(shape):
     """x in, y out, (gain, hang) in and out."""
     n = int(np.prod(shape))
@@ -346,11 +440,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from openwebrx_tpu_torch import kernels
+    from openwebrx_tpu_torch.models.digital_voice import DV_FACTORY
     from openwebrx_tpu_torch.models.receiver import (
-        ClientDemodulatorChain, build_program)
-    from openwebrx_tpu_torch.ops import adpcm, agc, channelizer, iir
+        MODE_BANDPASS, ClientDemodulatorChain, FftChain, build_program)
+    from openwebrx_tpu_torch.models.secondary import SECONDARY_FACTORY, PskChain
+    from openwebrx_tpu_torch.models.stages import block_requirement, plan_block_size
+    from openwebrx_tpu_torch.ops import adpcm, agc, channelizer, iir, squelch
     from openwebrx_tpu_torch.ops.fold import polyphase_fold, polyphase_fold_plain
-    from openwebrx_tpu_torch.runtime.chain import tree_map
+    from openwebrx_tpu_torch.ops.formats import Format, StreamSpec
+    from openwebrx_tpu_torch.runtime.bank import ChannelBank
+    from openwebrx_tpu_torch.runtime.chain import Fanout, Program, tree_map
     from openwebrx_tpu_torch.runtime.channelized import ChannelizedBank
 
     dev = torch.device("cuda", 0)
@@ -507,6 +606,119 @@ def main() -> int:
           f"AGC scene: zero rows at max gain, steps armed, pulses run out: "
           f"{g_s.tolist()} {h_s.tolist()}")
 
+    # the fold at config #2's listener bank: M = 64, 1875-sample channel block
+    proto64 = torch.as_tensor(channelizer.design_prototype(64, p_taps), device=dev)
+    bank64 = torch.flip(proto64.reshape(p_taps, 64), dims=(0, 1)).contiguous()
+    u64 = torch.complex(torch.randn(1875 + p_taps - 1, 64, generator=gen, device=dev),
+                        torch.randn(1875 + p_taps - 1, 64, generator=gen, device=dev))
+    v64 = polyphase_fold(u64, bank64, p_taps, device=dev)
+    v64_plain = polyphase_fold_plain(u64, bank64, p_taps)
+    torch.cuda.synchronize()
+    err64 = float((v64 - v64_plain).abs().max())
+    tol64 = FOLD_RTOL * float(v64_plain.abs().max())
+    log(f"[check] fold u{tuple(u64.shape)} (config #2, M=64): max_abs_err "
+        f"{err64:.3e} (tolerance {tol64:.3e})")
+    check(tuple(v64.shape) == (1875, 64) and err64 <= tol64,
+          f"fold kernel disagrees at M=64: {err64} > {tol64}")
+    fold_err = max(fold_err, err64)
+
+    # squelch at every path's shape (rows over 40 dB, thresholds near them,
+    # random start states, a silent and a half-NaN row), on real input, on
+    # a row walked in tiles of many windows, and a burst scene from the
+    # initial state: power_db within SQUELCH_DB_TOL, NaN where the plain
+    # version has NaN; gates, hang and output bit-identical on the rows
+    # whose every window lies farther than that from its level
+    squelch_in = {}                  # label: (state, level, x, window)
+    squelch_err = 0.0
+
+    def squelch_case(label, st, level, x, window, expect=None):
+        nonlocal squelch_err
+        sk, yk, pk = squelch.squelch_apply(st, level, x, window)
+        sp, yp, pp = squelch.squelch_apply_plain(st, level, x, window)
+        torch.cuda.synchronize()
+        nan_same = torch.equal(pk.isnan(), pp.isnan())
+        fin = ~pp.isnan()
+        err = float((pk[fin] - pp[fin]).abs().max()) if bool(fin.any()) else 0.0
+        squelch_err = max(squelch_err, err)
+        lvl = level.expand(pp.shape[:-1])[..., None]
+        clear = (((pp - lvl).abs() > SQUELCH_DB_TOL) | pp.isnan()).all(dim=-1)
+        same = (torch.equal(bits(torch, yk)[clear], bits(torch, yp)[clear])
+                and torch.equal(sk[0][clear], sp[0][clear])
+                and torch.equal(sk[1][clear], sp[1][clear]))
+        share = float(clear.float().mean())
+        log(f"[check] squelch {label} x{tuple(x.shape)} {str(x.dtype)[6:]} window "
+            f"{window}: power_db max_abs_err {err:.3e} dB (tolerance "
+            f"{SQUELCH_DB_TOL}), NaN where the plain has NaN = {nan_same}; "
+            f"{share:.3f} of rows clear of the level, identical there = {same}")
+        check(nan_same and err <= SQUELCH_DB_TOL and same and share >= 0.9,
+              f"squelch kernel disagrees ({label})")
+        if expect is not None:
+            check(sk[0].tolist() == expect[0] and sk[1].tolist() == expect[1],
+                  f"squelch scene: {sk[0].tolist()} {sk[1].tolist()}")
+
+    for label, (shape, window) in SQUELCH_PATH_CASES.items():
+        squelch_in[label] = (*squelch_input(torch, gen, dev, shape, window), window)
+        squelch_case(label, *squelch_in[label])
+    squelch_case("real", *squelch_input(torch, gen, dev, (5, 4801), 4801,
+                                        torch.float32), 4801)
+    squelch_case("tiled", *squelch_input(torch, gen, dev, (3, 40000), 400), 400)
+    # the scene: 4 windows from the initial state, one threshold for all
+    # rows; silence and NaN never open, a burst in window 1 holds the gate
+    # two windows and runs out, one in window 2 is still held at the end
+    scene = torch.zeros(8, 2400, dtype=torch.complex64, device=dev)
+    scene[2:4] = float("nan")
+    scene[4:6, 600:1200] = 1.0
+    scene[6:8, 1200:1800] = 1.0
+    squelch_case("scene", squelch.squelch_init((8,), device=dev),
+                 torch.tensor(-20.0, device=dev), scene, 600,
+                 expect=([False] * 6 + [True] * 2, [0] * 6 + [1] * 2))
+
+    # the exact IMA row encoder: the waterfall's row (dB rows as the stage
+    # makes them, fresh state), 16 rows from random states, full-scale
+    # square waves, and the slope's shorter row; bytes, stride states and
+    # final state identical
+    seq_err = 0
+
+    def seq_case(label, st, x):
+        nonlocal seq_err
+        ks, (kb, kst) = adpcm.adpcm_encode_seq(st, x)
+        ps, (pb, pst) = adpcm.adpcm_encode_seq_plain(st, x)
+        torch.cuda.synchronize()
+        n_bytes = int((kb != pb).sum())
+        seq_err = max(seq_err, int((kb.to(torch.int32) - pb.to(torch.int32)).abs().max()))
+        same = (n_bytes == 0 and torch.equal(kst, pst)
+                and all(torch.equal(a, b) for a, b in zip(ks, ps)))
+        log(f"[check] adpcm_encode_seq {label} {tuple(x.shape)}: bytes, stride "
+            f"states {tuple(kst.shape)} and final state identical = {same} "
+            f"({n_bytes} bytes differ)")
+        check(same, f"adpcm_encode_seq kernel differs ({label})")
+
+    def random_seq_state(rows):
+        return (torch.randint(-32768, 32767, (rows,), generator=gen, device=dev,
+                              dtype=torch.int32),
+                torch.randint(0, 89, (rows,), generator=gen, device=dev,
+                              dtype=torch.int32))
+
+    wf_rows_db = (torch.randn(1, WF_SIZE, generator=gen, device=dev) * 8 - 80)
+    wf_rows_db[0, 1000:1004] = -10.0
+    wf_samples = adpcm.fft_row_samples(wf_rows_db)
+    check(tuple(wf_samples.shape) == (1, SEQ_ROW), f"waterfall row {wf_samples.shape}")
+    seq_in = {"waterfall": (adpcm.adpcm_init((1,), device=dev), wf_samples)}
+    seq_in["16 rows"] = (random_seq_state(16), int16_audio(torch, gen, dev, 16, SEQ_ROW))
+    t = torch.arange(SEQ_ROW, device=dev)
+    square = torch.stack([torch.where((t // per) % 2 == 0, 32767, -32768)
+                          for per in (1, 2, 7, 64)]).to(torch.int16)
+    seq_in["square"] = (random_seq_state(4), square)
+    seq_in["short row"] = (random_seq_state(1), int16_audio(torch, gen, dev, 1, SEQ_SHORT_ROW))
+    for label, (st, x) in seq_in.items():
+        seq_case(label, st, x)
+    rows_host = wf_rows_db.cpu().numpy()
+    card_wire = adpcm.compress_fft_rows(wf_rows_db, device=dev)
+    check(card_wire == adpcm.compress_fft_rows(rows_host, device="cpu")
+          and len(card_wire[0]) == adpcm.wire_bytes_per_row(WF_SIZE),
+          "compress_fft_rows on the card differs from the CPU")
+    log("[check] compress_fft_rows (1, 4096) card vs CPU: wire bytes identical")
+
     # -- 4. small banks on the card against the CPU plain path ---------------
     # Every mode; usb and am are compared from block 0 on.  In the other
     # modes the card bank takes the CPU bank's state after block 0, whose
@@ -588,11 +800,126 @@ def main() -> int:
                 f"{rds_err:.3e} (tolerance {rds_tol:.3e})")
             check(rds_err <= rds_tol, "small wfm bank: card and CPU rds disagree")
 
+    # the waterfall at config #2's shapes (2.4 MS/s, 0.05 s blocks, 4096
+    # bins): float rows card vs CPU near the peak; the card's compressed
+    # rows are the CPU encoding of the card's own float rows (identical
+    # int16 input is the only fair bit-for-bit comparison)
+    spec24 = StreamSpec(Format.COMPLEX_FLOAT, CFG2_FS)
+    wf_blocks = seeded_blocks(torch, gen, dev, CFG2_FS, 120000, 2,
+                              [CFG2_LISTENER, CFG2_EDGE], "usb", noise=0.05)
+    wf_progs = {(where, comp): Program(FftChain(WF_SIZE, 20.0, compress=comp),
+                                       spec24, 120000, device=where)
+                for where in ("cpu", dev) for comp in (False, True)}
+    wf_err = 0.0
+    for x in wf_blocks:
+        out = {k: p.process(x if k[0] == dev else x.cpu())[0]
+               for k, p in wf_progs.items()}
+        wf_err = max(wf_err, near_peak_err(out[(dev, False)], out[("cpu", False)]))
+        raw = out[(dev, True)]
+        nb = adpcm.wire_bytes_per_row(WF_SIZE)
+        check(raw.shape == (1, SEQ_ROW // 2) and raw.dtype == np.uint8,
+              f"compressed waterfall rows {raw.shape} {raw.dtype}")
+        check([raw[0, :nb].tobytes()]
+              == adpcm.compress_fft_rows(out[(dev, False)], device="cpu"),
+              "compressed waterfall rows are not the encoding of the float rows")
+    log(f"[check] FftChain(4096, 20) at 2.4 MS/s, 2 blocks: float rows card vs "
+        f"CPU max diff {wf_err:.2e} dB within {NEAR_PEAK_DB:.0f} dB of the peak "
+        f"(tolerance {WF_DB_TOL}); compressed rows = the encoding of the "
+        f"card's float rows")
+    check(wf_err <= WF_DB_TOL, "waterfall rows card vs CPU disagree")
+
+    # every secondary and digital-voice chain, two channels, the card
+    # against the CPU on the same blocks: an FM-wobbled carrier in each
+    # channel's passband plus noise.  The card takes the CPU's state after
+    # block 0 (FM discriminators see the filters' start-up ramp there,
+    # whose rounding differs), block 1 is compared
+    centre = {"fax": 1900.0, "sstv": 1900.0, "cwskimmer": 2000.0}
+    wobble = {"fax": 300.0, "sstv": 300.0, "rtty450": 150.0}
+    chain_cases = ([(k, 48000.0, f) for k, f in SECONDARY_FACTORY.items()]
+                   + [(k, 240000.0, f) for k, f in DV_FACTORY.items()])
+    chain_err = {}
+    for name, cfs, make in chain_cases:
+        offsets = np.array([-3000.0, 5000.0])
+        progs = {}
+        for where in ("cpu", dev):
+            c = make(cfs)
+            c.selector.shift.set_rate(-offsets / cfs)
+            cspec = StreamSpec(Format.COMPLEX_FLOAT, cfs)
+            progs[where] = Program(c, cspec, plan_block_size(c, cspec, 0.1),
+                                   batch_shape=(2,), device=where)
+        blk = progs["cpu"].block
+        n = np.arange(2 * blk) / cfs
+        dev_hz = wobble.get(name, 1500.0 if cfs > 48000.0 else 10.0)
+        rng = np.random.default_rng(len(name))
+        sig = sum(0.4 * np.exp(2j * np.pi * (o + centre.get(name, 0.0)) * n
+                               + 1j * (dev_hz / 7.0) * np.sin(2 * np.pi * 7.0 * n))
+                  for o in offsets)
+        sig = (sig + 0.02 * (rng.standard_normal(len(n))
+                             + 1j * rng.standard_normal(len(n)))).astype(np.complex64)
+        for b in range(2):
+            if b == 1:
+                progs[dev].state = tree_map(lambda t: t.to(dev), progs["cpu"].state)
+            x = sig[b * blk:(b + 1) * blk]
+            (yc, ac), (yd, ad) = progs["cpu"].process(x), progs[dev].process(x)
+        check(yd.shape == yc.shape and yd.dtype == yc.dtype,
+              f"{name}: card y {yd.shape} {yd.dtype}, CPU {yc.shape} {yc.dtype}")
+        if yc.dtype == np.uint8:
+            agree = float(np.mean(yd == yc))
+            chain_err[name] = 1.0 - agree
+            ok = agree >= DIBIT_AGREE
+        else:
+            chain_err[name] = float(np.abs(yd - yc).max() / np.abs(yc).max())
+            ok = chain_err[name] <= CHAIN_RTOL
+        rows_err = near_peak_err(ad["secondary_fft.rows"], ac["secondary_fft.rows"])
+        log(f"[check] {name} chain (2 channels, {blk}-sample blocks at {cfs:.0f} "
+            f"S/s), card vs CPU on block 1: y {yd.shape} {yd.dtype}, "
+            + (f"dibits differ {chain_err[name]:.4f} (at most {1 - DIBIT_AGREE:.2f})"
+               if yc.dtype == np.uint8 else
+               f"max diff {chain_err[name]:.2e} of max|y| (tolerance {CHAIN_RTOL})")
+            + f"; secondary waterfall {rows_err:.2e} dB near the peak")
+        check(ok and rows_err <= WF_DB_TOL, f"{name} chain: card and CPU disagree")
+
+    # a Fanout on the card against its branches run alone on the card
+    def fan_parts():
+        a = ClientDemodulatorChain(240000.0, 12000.0, "usb", compression="none")
+        b = ClientDemodulatorChain(240000.0, 12000.0, "am", compression="none")
+        for c in (a, b):
+            c.set_frequency_offset(30000.0)
+        return {"usb": (a, (4,)), "am": (b, (2,)),
+                "fft": (FftChain(1024, fps=1000.0), ())}
+
+    spec240 = StreamSpec(Format.COMPLEX_FLOAT, 240000.0)
+    parts = fan_parts()
+    fan_prog = Program(Fanout([(k, c) for k, (c, _) in parts.items()],
+                              batch_shapes={k: b for k, (_, b) in parts.items()}),
+                       spec240, 24000, device=dev)
+    solo = {k: Program(c, spec240, 24000, batch_shape=b, device=dev)
+            for k, (c, b) in fan_parts().items()}
+    fan_blocks = seeded_blocks(torch, gen, dev, 240000.0, 24000, 3, [30000.0], "am")
+    fan_audio, fan_rows = 0, 0.0
+    for x in fan_blocks:
+        yf, af = fan_prog.process(x)
+        for k, prog in solo.items():
+            ys, as_ = prog.process(x)
+            if k == "fft":
+                fan_rows = max(fan_rows, near_peak_err(yf[k], ys))
+            else:
+                fan_audio = max(fan_audio, int(np.abs(yf[k].astype(np.int32)
+                                                      - ys.astype(np.int32)).max()))
+                check(np.abs(af[f"{k}.selector.squelch.power_db"]
+                             - as_["selector.squelch.power_db"]).max() <= SQUELCH_DB_TOL,
+                      f"fanout {k}: squelch powers differ from the branch alone")
+    log(f"[check] Fanout(usb (4,), am (2,), fft ()) on the card vs each branch "
+        f"alone: audio max diff {fan_audio} LSB (tolerance 2), rows "
+        f"{fan_rows:.2e} dB")
+    check(fan_audio <= 2 and fan_rows <= WF_DB_TOL, "Fanout differs from its branches")
+
     # -- 5. the paths at full width ------------------------------------------
-    # record the shapes the paths hand the AGC and the ADPCM encoder (the
-    # stages call them through their modules)
-    seen_agc, seen_adpcm = set(), set()
+    # record the shapes the paths hand the AGC, the ADPCM encoders and the
+    # squelch (the stages call them through their modules)
+    seen_agc, seen_adpcm, seen_squelch, seen_seq = set(), set(), set(), set()
     agc_apply, adpcm_encode = agc.agc_apply, adpcm.adpcm_encode
+    squelch_apply, adpcm_encode_seq = squelch.squelch_apply, adpcm.adpcm_encode_seq
 
     def agc_recorded(state, profile, x, chunk=agc.CHUNK, device="cuda"):
         seen_agc.add((profile, tuple(x.shape), chunk))
@@ -602,20 +929,34 @@ def main() -> int:
         seen_adpcm.add(tuple(x.shape))
         return adpcm_encode(state, x)
 
+    def squelch_recorded(state, level_db, x, window, hang_windows=2):
+        seen_squelch.add((tuple(x.shape), window))
+        return squelch_apply(state, level_db, x, window, hang_windows)
+
+    def seq_recorded(state, x):
+        seen_seq.add(tuple(x.shape))
+        return adpcm_encode_seq(state, x)
+
     agc.agc_apply, adpcm.adpcm_encode = agc_recorded, adpcm_recorded
+    squelch.squelch_apply, adpcm.adpcm_encode_seq = squelch_recorded, seq_recorded
     paths = {}
     launches_by_path = {}
     n_blocks = WARMUP_BLOCKS + TIMED_BLOCKS
+
+    def launches_per_block(fold=0, adpcm_=0, iir_=0, agc_=0, squelch_=0, seq=0):
+        return {"fold.cu": fold, "adpcm.cu": adpcm_, "iir.cu": iir_, "agc.cu": agc_,
+                "squelch.cu": squelch_, "adpcm_seq.cu": seq}
+
     bank_paths = [
         # label, mode, m, audio rate, blocks timed, expected launches/block
         ("usb", "usb", 1024, 12000.0, TIMED_BLOCKS,
-         {"fold.cu": 1, "adpcm.cu": 1, "iir.cu": 0, "agc.cu": 1}),
+         launches_per_block(fold=1, adpcm_=1, agc_=1, squelch_=1)),
         ("nfm", "nfm", 1024, 12000.0, TIMED_BLOCKS,
-         {"fold.cu": 1, "adpcm.cu": 1, "iir.cu": 1, "agc.cu": 1}),
+         launches_per_block(fold=1, adpcm_=1, iir_=1, agc_=1, squelch_=1)),
         ("am", "am", 2048, 12000.0, TIMED_BLOCKS,
-         {"fold.cu": 1, "adpcm.cu": 1, "iir.cu": 1, "agc.cu": 1}),
+         launches_per_block(fold=1, adpcm_=1, iir_=1, agc_=1, squelch_=1)),
         ("wfm", "wfm", 128, 48000.0, 5,
-         {"fold.cu": 1, "adpcm.cu": 1, "iir.cu": 1, "agc.cu": 0}),
+         launches_per_block(fold=1, adpcm_=1, iir_=1, squelch_=1)),
     ]
     for label, mode, m, rate, n_timed, per_block in bank_paths:
         bank = ChannelizedBank(FS, m, mode=mode, audio_rate=rate,
@@ -633,8 +974,8 @@ def main() -> int:
         launches_by_path[label] = launches
         check_launches(label, launches, {k: v * nb for k, v in per_block.items()})
         out_bytes = bank.channel_block * int(rate) // int(bank.channel_rate) // 2
-        squelch = bank.chain.selector.squelch
-        windows = squelch.block // squelch.window
+        sq_stage = bank.chain.selector.squelch
+        windows = sq_stage.block // sq_stage.window
         for y, aux in results:
             data, strides = y
             pdb = aux["selector.squelch.power_db"]
@@ -671,8 +1012,8 @@ def main() -> int:
     results, wall, launches, peak = drive(
         "cfg1", prog.dispatch, prog.fetch, blocks, kernels, torch, dev)
     launches_by_path["cfg1"] = launches
-    check_launches("cfg1", launches, {"fold.cu": 0, "adpcm.cu": n_blocks,
-                                      "iir.cu": n_blocks, "agc.cu": n_blocks})
+    check_launches("cfg1", launches, {k: v * n_blocks for k, v in launches_per_block(
+        adpcm_=1, iir_=1, agc_=1, squelch_=1).items()})
     for y, aux in results:
         data, strides = y
         check(data.shape == (prog.out_block,) and data.dtype == np.uint8,
@@ -689,15 +1030,220 @@ def main() -> int:
     check(snr > TONE_SNR_MIN_DB, f"cfg1: tone SNR {snr:.1f} dB")
     paths["cfg1"] = report("cfg1", smi, wall, TIMED_BLOCKS, prog.block,
                            CFG1_FS, peak)
+    del prog, blocks, results
+
+    # BASELINE config #2: a 4096-bin compressed waterfall, one USB listener
+    # on a 64-channel PFB bank and one edge dial on a full-rate ChannelBank,
+    # all fed from one device-resident block per step
+    lbank = ChannelizedBank(CFG2_FS, 64, mode="usb", compression="adpcm",
+                            target_seconds=0.04, device=dev)
+    lslot = lbank.assign(CFG2_LISTENER)
+    ebank = ChannelBank(CFG2_FS, "usb", capacity=16, block=lbank.block, device=dev)
+    check(lbank.block == 120000 and ebank.chunk_ratio == 1
+          and not lbank.fits(CFG2_EDGE, *MODE_BANDPASS["usb"]),
+          f"config #2 plan: block {lbank.block}, chunk ratio {ebank.chunk_ratio}")
+    eslot = ebank.add_channel(CFG2_EDGE)
+    wf2 = FftChain(WF_SIZE, 20.0, compress=True)
+    wf2_prog = Program(wf2, spec24, lbank.block, device=dev)
+    nb = wf2.waterfall.wire_bytes_per_row
+    check((wf2.waterfall.rows, wf2.waterfall.averages, nb) == (1, 29, 2053),
+          f"config #2 waterfall plan {wf2.waterfall.rows} {wf2.waterfall.averages} {nb}")
+    blocks = seeded_blocks(torch, gen, dev, CFG2_FS, lbank.block, n_blocks,
+                           [CFG2_LISTENER, CFG2_EDGE], "usb", noise=0.05)
+
+    def cfg2_dispatch(x):
+        return (wf2_prog.dispatch(x), lbank.dispatch(x), ebank.feed_dispatch(x))
+
+    def cfg2_fetch(w, lb, eb):
+        return wf2_prog.fetch(*w), lbank.fetch(*lb), ebank.program.fetch(*eb)
+
+    results, wall, launches, peak = drive(
+        "cfg2", cfg2_dispatch, cfg2_fetch, blocks, kernels, torch, dev)
+    launches_by_path["cfg2"] = launches
+    check_launches("cfg2", launches, {k: v * n_blocks for k, v in launches_per_block(
+        fold=1, adpcm_=2, agc_=2, squelch_=2, seq=1).items()})
+    bins = {f: WF_SIZE // 2 + int(round((f + TONE_AUDIO_HZ) / CFG2_FS * WF_SIZE))
+            for f in (CFG2_LISTENER, CFG2_EDGE)}
+    for (raw, _), (ly, la), (ey, ea) in results:
+        check(raw.shape == (1, SEQ_ROW // 2) and raw.dtype == np.uint8,
+              f"cfg2: waterfall rows {raw.shape} {raw.dtype}")
+        check(ly[0].shape == (64, 300) and ey[0].shape == (16, 300)
+              and la["selector.squelch.power_db"].shape == (64, 1)
+              and ea["selector.squelch.power_db"].shape == (16, 1),
+              "cfg2: listener outputs")
+    row = decoded_row(results[-1][0][0][0], nb, adpcm)
+    for f, k in bins.items():
+        peak_bin = k - 4 + int(np.argmax(row[k - 4:k + 5]))
+        rise = row[peak_bin] - np.median(row)
+        log(f"[cfg2] waterfall: tone at {f + TONE_AUDIO_HZ:.0f} Hz peaks in bin "
+            f"{peak_bin} (expected {k} ± 1), {rise:.1f} dB above the median")
+        check(abs(peak_bin - k) <= 1 and rise > 20.0, f"cfg2: waterfall tone at {f}")
+    for label, bank_out, slot in (("listener", 1, lslot), ("edge", 2, eslot)):
+        audio = decode_channel([(r[bank_out][0][0][slot], r[bank_out][0][1][slot])
+                                for r in results], adpcm)
+        snr = tone_snr(audio[len(audio) // 2:].astype(np.float32) / 32767,
+                       TONE_AUDIO_HZ, 12000.0)
+        log(f"[cfg2] {label} slot {slot}: USB tone SNR {snr:.1f} dB (minimum "
+            f"{TONE_SNR_MIN_DB})")
+        check(snr > TONE_SNR_MIN_DB, f"cfg2: {label} tone SNR {snr:.1f} dB")
+    paths["cfg2"] = report("cfg2", smi, wall, TIMED_BLOCKS, lbank.block, CFG2_FS, peak)
+    del lbank, ebank, wf2_prog, blocks, results
+
+    # BASELINE config #4: BPSK31 ×16 and USB audio ×16 in one Fanout,
+    # delivered in 6-block batches; the first batch is checked against the
+    # same Fanout on the CPU
+    def cfg4_fanout():
+        psk = PskChain(CFG2_FS, baud=31.25)
+        psk.selector.shift.set_rate(
+            -(np.arange(CFG4_CHANNELS, dtype=np.float32) * 5e3 + 50e3) / CFG2_FS)
+        aud = ClientDemodulatorChain(CFG2_FS, 12000.0, "usb", "none")
+        aud.selector.shift.set_rate(
+            -(np.arange(CFG4_CHANNELS, dtype=np.float32) * 5e3 + 60e3) / CFG2_FS)
+        return psk, aud, Fanout([("psk", psk), ("audio", aud)], batch_shapes={
+            "psk": (CFG4_CHANNELS,), "audio": (CFG4_CHANNELS,)})
+
+    psk4, aud4, fan4 = cfg4_fanout()
+    ra, rb = block_requirement(psk4, spec24), block_requirement(aud4, spec24)
+    req = ra * rb // int(np.gcd(ra, rb))
+    block4 = (int(round(CFG2_FS * 0.1)) + req - 1) // req * req
+    check(block4 == 307200, f"config #4 block {block4}")
+    prog4 = Program(fan4, spec24, block4, device=dev)
+    n4 = 4 * CFG4_BATCH
+    blocks = seeded_blocks(torch, gen, dev, CFG2_FS, block4, n4, [60e3], "usb")
+    torch.cuda.synchronize()
+    for k in kernels.ALL:
+        k.launches = 0
+    results4, pend, batch, t_start = [], [], [], None
+    for i, x in enumerate(blocks):
+        if i == CFG4_BATCH:                       # after the first batch
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        batch.append(prog4.dispatch_quiet(x))
+        if len(batch) == CFG4_BATCH:
+            pend.append(prog4.join_pending(batch))
+            batch = []
+        if len(pend) >= 2:                        # two batches in flight
+            results4 += prog4.fetch_many(*pend.pop(0))
+    while pend:
+        results4 += prog4.fetch_many(*pend.pop(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = {k.source.name: k.launches for k in kernels.ALL}
+    log(f"[cfg4] launches: {launches} (blocks fed: {n4})")
+    launches_by_path["cfg4"] = launches
+    check_launches("cfg4", launches, {k: v * n4 for k, v in launches_per_block(
+        agc_=1, squelch_=1).items()})
+    symbols = 0
+    for y, aux in results4:
+        check(y["psk"].shape == (CFG4_CHANNELS, int(block4 * 31.25 / CFG2_FS))
+              and y["psk"].dtype == np.complex64
+              and y["audio"].shape == (CFG4_CHANNELS, 1536)
+              and y["audio"].dtype == np.int16
+              and aux["psk.secondary_fft.rows"].shape == (CFG4_CHANNELS, 1, 2048)
+              and aux["audio.selector.squelch.power_db"].shape == (CFG4_CHANNELS, 2),
+              f"cfg4: output shapes {y['psk'].shape} {y['audio'].shape}")
+        symbols += y["psk"].shape[-1]
+    check(len(results4) == n4 and symbols == n4 * 4,
+          f"cfg4: {len(results4)} results, {symbols} symbols a channel")
+    _, _, fan4_cpu = cfg4_fanout()
+    prog4_cpu = Program(fan4_cpu, spec24, block4, device="cpu")
+    psk_err, aud_err, pdb_err = 0.0, 0, 0.0
+    for x, (y, aux) in zip(blocks[:CFG4_BATCH], results4):
+        yc, ac = prog4_cpu.process(x.cpu())
+        psk_err = max(psk_err, float(np.abs(y["psk"] - yc["psk"]).max()
+                                     / np.abs(yc["psk"]).max()))
+        aud_err = max(aud_err, int(np.abs(y["audio"].astype(np.int32)
+                                          - yc["audio"].astype(np.int32)).max()))
+        key = "audio.selector.squelch.power_db"
+        pdb_err = max(pdb_err, float(np.abs(aux[key] - ac[key]).max()))
+    log(f"[cfg4] first batch card vs CPU: psk symbols max diff {psk_err:.2e} of "
+        f"max|y| (tolerance {CHAIN_RTOL}), audio {aud_err} LSB (tolerance "
+        f"{SMALL_BANK_LSB}), squelch power {pdb_err:.2e} dB; {symbols} symbols "
+        f"a channel over {n4} blocks")
+    check(psk_err <= CHAIN_RTOL and aud_err <= SMALL_BANK_LSB
+          and pdb_err <= SQUELCH_DB_TOL, "cfg4: card and CPU disagree")
+    audio4 = np.concatenate([y["audio"][0] for y, _ in results4])
+    snr = tone_snr(audio4[len(audio4) // 2:].astype(np.float32) / 32767,
+                   TONE_AUDIO_HZ, 12000.0)
+    log(f"[cfg4] audio channel 0: USB tone SNR {snr:.1f} dB (minimum {TONE_SNR_MIN_DB})")
+    check(snr > TONE_SNR_MIN_DB, f"cfg4: tone SNR {snr:.1f} dB")
+    paths["cfg4"] = report("cfg4", smi, wall, n4 - CFG4_BATCH, block4, CFG2_FS,
+                           torch.cuda.max_memory_allocated(dev) / 2 ** 20)
+    del prog4, prog4_cpu, blocks, results4
+
+    # the 1024-channel USB bank beside the waterfall a config #5 device
+    # runs for its subscribers: FftChain(4096, 9) on the same 49.152 MS/s
+    # block, 600 averaged frames a 0.05 s row; the waterfall alone, then both
+    ubank = ChannelizedBank(FS, M, mode="usb", compression="adpcm",
+                            target_seconds=0.05, device=dev)
+    for i in range(M):
+        ubank.assign(float((i - M // 2) * FS / M))
+    wf5 = FftChain(WF_SIZE, 9.0, compress=True)
+    wf5_prog = Program(wf5, StreamSpec(Format.COMPLEX_FLOAT, FS), ubank.block,
+                       device=dev)
+    check((wf5.waterfall.rows, wf5.waterfall.averages) == (1, 600),
+          f"waterfall plan at 49.152 MS/s: {wf5.waterfall.rows} rows of "
+          f"{wf5.waterfall.averages}")
+    carriers = [float((i - M // 2) * FS / M) for i in TONE_CHANNELS]
+    blocks = seeded_blocks(torch, gen, dev, FS, ubank.block, n_blocks, carriers, "usb")
+    results, wall, launches, peak = drive(
+        "wf", wf5_prog.dispatch, wf5_prog.fetch, blocks, kernels, torch, dev)
+    launches_by_path["wf"] = launches
+    check_launches("wf", launches, {k: v * n_blocks for k, v in launches_per_block(seq=1).items()})
+    # 600 averages leave a floor smooth to ±0.2 dB, so the codec's step is
+    # small when a tone's 37 dB peak arrives and the decoded peak comes out
+    # ~25 dB low and a bin late (the reference encoder does the same; the
+    # bytes are bit-identical to it): the tone must be there, ±1 bin
+    row = decoded_row(results[-1][0][0], wf5.waterfall.wire_bytes_per_row, adpcm)
+    for f in carriers:
+        k = WF_SIZE // 2 + int(round((f + TONE_AUDIO_HZ) / FS * WF_SIZE))
+        peak_bin = k - 4 + int(np.argmax(row[k - 4:k + 5]))
+        rise = row[peak_bin] - np.median(row)
+        log(f"[wf] waterfall: tone at {f + TONE_AUDIO_HZ:.0f} Hz peaks in bin "
+            f"{peak_bin} (expected {k} ± 1), {rise:.1f} dB above the median "
+            f"after decoding")
+        check(abs(peak_bin - k) <= 1 and rise > 3.0,
+              f"wf: tone at {f} peaks in bin {peak_bin}, expected {k}")
+    paths["wf"] = report("wf", smi, wall, TIMED_BLOCKS, ubank.block, FS, peak)
+
+    def both_dispatch(x):
+        return wf5_prog.dispatch(x), ubank.dispatch(x)
+
+    def both_fetch(w, b):
+        return wf5_prog.fetch(*w), ubank.fetch(*b)
+
+    results, wall, launches, peak = drive(
+        "usb+wf", both_dispatch, both_fetch, blocks, kernels, torch, dev)
+    launches_by_path["usb+wf"] = launches
+    check_launches("usb+wf", launches, {k: v * n_blocks for k, v in launches_per_block(
+        fold=1, adpcm_=1, agc_=1, squelch_=1, seq=1).items()})
+    for k in [ubank.channel_for(f)[0] for f in carriers]:
+        audio = decode_channel([(r[1][0][0][k], r[1][0][1][k]) for r in results], adpcm)
+        snr = tone_snr(audio[len(audio) // 2:].astype(np.float32) / 32767,
+                       TONE_AUDIO_HZ, 12000.0)
+        check(snr > TONE_SNR_MIN_DB, f"usb+wf: channel {k} tone SNR {snr:.1f} dB")
+    log(f"[usb+wf] tones decoded in slots {[ubank.channel_for(f)[0] for f in carriers]}")
+    paths["usb+wf"] = report("usb+wf", smi, wall, TIMED_BLOCKS, ubank.block, FS, peak)
+    del ubank, wf5_prog, blocks, results
+    torch.cuda.empty_cache()
+
     agc.agc_apply, adpcm.adpcm_encode = agc_apply, adpcm_encode
+    squelch.squelch_apply, adpcm.adpcm_encode_seq = squelch_apply, adpcm_encode_seq
     log(f"[shapes] agc on the paths: {sorted((s, c) for _, s, c in seen_agc)}; "
-        f"adpcm_encode on the paths: {sorted(seen_adpcm)}")
+        f"adpcm_encode on the paths: {sorted(seen_adpcm)}; squelch on the "
+        f"paths: {sorted(seen_squelch)}; adpcm_encode_seq on the paths: "
+        f"{sorted(seen_seq)}")
     # phase 3 checked exactly these; an empty record fails here too
     path_agc = {(getattr(agc, p), s, c) for p, s, c in AGC_PATH_CASES.values()}
     check(seen_agc == path_agc, f"AGC shapes on the paths {seen_agc} are not "
           f"the expected {path_agc}")
     check(seen_adpcm == set(ADPCM_PATH_SHAPES.values()), f"ADPCM shapes on the "
           f"paths {seen_adpcm} are not the expected {set(ADPCM_PATH_SHAPES.values())}")
+    path_squelch = {(s, w) for s, w in SQUELCH_PATH_CASES.values()}
+    check(seen_squelch == path_squelch, f"squelch shapes on the paths "
+          f"{seen_squelch} are not the expected {path_squelch}")
+    check(seen_seq == ADPCM_SEQ_PATH_SHAPES, f"adpcm_encode_seq shapes on the "
+          f"paths {seen_seq} are not the expected {ADPCM_SEQ_PATH_SHAPES}")
     print(json.dumps({"card": smi, "paths": paths}), flush=True)
 
     # -- 6. kernel timings at the main-path shapes ------------------------------
@@ -745,7 +1291,7 @@ def main() -> int:
     int32_per_s = INT32_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6
     flush = torch.ones(L2_FLUSH_BYTES // 4, device=dev)
 
-    def timed(label, name, fn, args, nbytes, nops, ops_per_s, chain):
+    def timed(label, name, fn, args, nbytes, nops, ops_per_s, chain=None):
         """fn(*args) timed warm, then cold: one copy of args per launch."""
         warm = time_cuda(lambda: fn(*args), iters, torch)
         copies = [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
@@ -754,12 +1300,91 @@ def main() -> int:
                          torch, flush)
         del copies
         b, by = bound(nbytes, nops, ops_per_s)
+        chain_txt = ("" if chain is None else
+                     f", chain {chain:.5f} ms, cold share of the chain {chain / cold:.3f}")
         log(f"[time] {smi}: {name} {label}: warm {warm:.5f} ms, cold {cold:.5f} "
             f"ms; bound {b:.5f} ms ({by}: {nbytes} B, {nops} ops at "
-            f"{ops_per_s:.4g}/s), chain {chain:.5f} ms; cold share of the bound "
-            f"{b / cold:.3f}, of the chain {chain / cold:.3f}")
+            f"{ops_per_s:.4g}/s); cold share of the bound {b / cold:.3f}{chain_txt}")
         return {"ms": warm, "cold_ms": cold, "bound_ms": b, "bound_by": by,
                 "chain_bound_ms": chain}
+
+    # the fold and the IIR cold too: their warm inputs stay in the L2
+    fold_row = timed("(2415, 1024)", "fold kernel",
+                     lambda u_, b_: polyphase_fold(u_, b_, p_taps, device=dev),
+                     (u, bank2), fold_bytes, fold_ops, FP32_OPS_PER_S)
+    fold64_row = timed("(1890, 64)", "fold kernel",
+                       lambda u_, b_: polyphase_fold(u_, b_, p_taps, device=dev),
+                       (u64, bank64), u64.numel() * 8 + bank64.numel() * 4
+                       + v64.numel() * 8, 4 * p_taps * v64.numel(), FP32_OPS_PER_S)
+    iir_row = timed("(1024, 2400)", "iir kernel",
+                    lambda x0, y0, x: iir.first_order_apply((x0, y0), *deemph, x,
+                                                            device=dev),
+                    (*iir_st, iir_x), iir_bytes, iir_ops, FP32_OPS_PER_S)
+
+    # the squelch at every path's shape, warm and cold; bound by bytes (x
+    # in, y out); no chain to speak of (a few windows a row)
+    squelch_rows = {}
+    for label, (st, level, x, window) in squelch_in.items():
+        squelch_rows[label] = dict(shape=list(x.shape), window=window, **timed(
+            label, "squelch kernel",
+            lambda o, h, lv, x, window=window: squelch.squelch_apply(
+                (o, h), lv, x, window), (*st, level, x),
+            squelch_bytes(tuple(x.shape), window), 4 * x.numel(), FP32_OPS_PER_S))
+    # device kernels a call launches (torch.profiler's kernel records, the
+    # hand-written ones included): the plain version against the kernel
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels_launched(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and "memcpy" not in e.name.lower() and "memset" not in e.name.lower())
+
+    for label, (st, level, x, window) in squelch_in.items():
+        squelch_rows[label]["plain_kernels"] = kernels_launched(
+            lambda: squelch.squelch_apply_plain(st, level, x, window))
+        squelch_rows[label]["kernels"] = kernels_launched(
+            lambda: squelch.squelch_apply(st, level, x, window))
+    log(f"[launches] squelch kernels per call, plain -> kernel: " + ", ".join(
+        f"{k} {v['plain_kernels']} -> {v['kernels']}" for k, v in squelch_rows.items()))
+    st, level, x, window = squelch_in["nfm"]
+    squelch_plain_ms = time_cuda(
+        lambda: squelch.squelch_apply_plain(st, level, x, window), 10, torch)
+    log(f"[time] {smi}: squelch plain nfm {squelch_plain_ms:.5f} ms")
+
+    # the row encoder: its chain per nibble is the slope between one row of
+    # SEQ_SHORT_ROW and one of SEQ_ROW samples (a runtime length: one
+    # build); its operations bound counts the SASS instructions of its main
+    # loop a nibble at the int32 issue rate
+    seq_one = {}
+    for ns in (SEQ_SHORT_ROW, SEQ_ROW):
+        st1 = random_seq_state(1)
+        x1 = int16_audio(torch, gen, dev, 1, ns)
+        seq_one[ns] = time_cuda(lambda: adpcm.adpcm_encode_seq(st1, x1),
+                                STEP_ITERS, torch)
+    seq_step_ms = (seq_one[SEQ_ROW] - seq_one[SEQ_SHORT_ROW]) / (SEQ_ROW - SEQ_SHORT_ROW)
+    seq_loop = sass_loop_instructions(kernels.ADPCM_SEQ.library_path())
+    seq_nibble_instrs = seq_loop / ADPCM_LOOP_NIBBLES
+    log(f"[time] {smi}: adpcm_encode_seq one row: {SEQ_SHORT_ROW} nibbles "
+        f"{seq_one[SEQ_SHORT_ROW]:.5f} ms, {SEQ_ROW} nibbles {seq_one[SEQ_ROW]:.5f} "
+        f"ms: {seq_step_ms * 1e6:.3f} ns = {seq_step_ms * clock_mhz * 1e3:.1f} "
+        f"cycles a nibble at {clock_mhz:.0f} MHz; main loop {seq_loop} SASS "
+        f"instructions, {seq_nibble_instrs:.2f} a nibble")
+    seq_rows = {}
+    for label in ("waterfall", "16 rows"):
+        st, x = seq_in[label]
+        rows_, ns = x.shape
+        seq_rows[label] = dict(shape=list(x.shape), **timed(
+            label, "adpcm_encode_seq kernel",
+            lambda p0, i0, x: adpcm.adpcm_encode_seq((p0, i0), x), (*st, x),
+            seq_bytes(rows_, ns), round(seq_nibble_instrs * x.numel()), int32_per_s,
+            seq_step_ms * ns))
+    st, x = seq_in["waterfall"]
+    seq_plain_ms = time_cuda(lambda: adpcm.adpcm_encode_seq_plain(st, x), 2, torch)
+    log(f"[time] {smi}: adpcm_encode_seq plain (1, {SEQ_ROW}) {seq_plain_ms:.5f} ms")
 
     # the floor of any launch: an empty kernel, back to back
     launch_ms = time_cuda(lambda: torch.cuda._sleep(0), iters, torch)
@@ -856,8 +1481,9 @@ def main() -> int:
          "source": "openwebrx_tpu_torch/csrc/fold.cu",
          "replaces": "openwebrx_tpu/ops/pallas_fold.py:39",
          "launches": total("fold.cu"), "launches_by_path": by_path("fold.cu"),
-         "max_abs_err": fold_err, "ms": fold_ms, "plain_ms": fold_plain_ms,
-         "bound_ms": fold_bound, "bound_by": fold_by, "library_ms": fold_lib_ms},
+         "max_abs_err": fold_err, "ms": fold_ms, "cold_ms": fold_row["cold_ms"],
+         "plain_ms": fold_plain_ms, "bound_ms": fold_bound, "bound_by": fold_by,
+         "library_ms": fold_lib_ms, "by_shape": {"cfg2 (1890, 64)": fold64_row}},
         {"name": "adpcm_encode", "route": "cuda",
          "source": "openwebrx_tpu_torch/csrc/adpcm.cu",
          "replaces": "openwebrx_tpu/ops/adpcm.py:131",
@@ -871,8 +1497,9 @@ def main() -> int:
          "source": "openwebrx_tpu_torch/csrc/iir.cu",
          "replaces": "openwebrx_tpu/ops/iir.py:18",
          "launches": total("iir.cu"), "launches_by_path": by_path("iir.cu"),
-         "max_abs_err": iir_err, "ms": iir_ms, "plain_ms": iir_plain_ms,
-         "bound_ms": iir_bound, "bound_by": iir_by, "library_ms": None},
+         "max_abs_err": iir_err, "ms": iir_ms, "cold_ms": iir_row["cold_ms"],
+         "plain_ms": iir_plain_ms, "bound_ms": iir_bound, "bound_by": iir_by,
+         "library_ms": None},
         {"name": "agc_chunked", "route": "cuda",
          "source": "openwebrx_tpu_torch/csrc/agc.cu",
          "replaces": "openwebrx_tpu/ops/agc.py:58",
@@ -882,6 +1509,26 @@ def main() -> int:
          "bound_ms": agc_main["bound_ms"], "bound_by": agc_main["bound_by"],
          "chain_bound_ms": agc_main["chain_bound_ms"], "library_ms": None,
          "by_shape": agc_rows},
+        {"name": "squelch_apply", "route": "cuda",
+         "source": "openwebrx_tpu_torch/csrc/squelch.cu",
+         "replaces": "openwebrx_tpu/ops/squelch.py:25",
+         "launches": total("squelch.cu"), "launches_by_path": by_path("squelch.cu"),
+         "max_abs_err": squelch_err, "ms": squelch_rows["nfm"]["ms"],
+         "cold_ms": squelch_rows["nfm"]["cold_ms"], "plain_ms": squelch_plain_ms,
+         "bound_ms": squelch_rows["nfm"]["bound_ms"],
+         "bound_by": squelch_rows["nfm"]["bound_by"], "library_ms": None,
+         "by_shape": squelch_rows},
+        {"name": "adpcm_encode_seq", "route": "cuda",
+         "source": "openwebrx_tpu_torch/csrc/adpcm_seq.cu",
+         "replaces": "openwebrx_tpu/ops/adpcm.py:98",
+         "launches": total("adpcm_seq.cu"), "launches_by_path": by_path("adpcm_seq.cu"),
+         "max_abs_err": float(seq_err), "ms": seq_rows["waterfall"]["ms"],
+         "cold_ms": seq_rows["waterfall"]["cold_ms"], "plain_ms": seq_plain_ms,
+         "bound_ms": seq_rows["waterfall"]["bound_ms"],
+         "bound_by": seq_rows["waterfall"]["bound_by"],
+         "chain_bound_ms": seq_rows["waterfall"]["chain_bound_ms"],
+         "cycles_per_nibble": seq_step_ms * clock_mhz * 1e3, "library_ms": None,
+         "by_shape": seq_rows},
     ]}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

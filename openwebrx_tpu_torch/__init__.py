@@ -3,7 +3,8 @@
 The JAX package ``openwebrx_tpu`` is the reference and this package imports
 nothing from it (not even its numpy-only modules: importing ``openwebrx_tpu``
 configures and imports JAX).  Plain tensor code is PyTorch; the polyphase
-fold, the ADPCM encoder, the first-order IIR and the AGC are CUDA kernels
+fold, the ADPCM audio encoder, the exact ADPCM row encoder of the
+waterfall, the first-order IIR, the AGC and the squelch are CUDA kernels
 written by hand (``csrc/``).
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``.  Without a

@@ -126,7 +126,16 @@ IIR = CudaKernel("iir.cu", "iir_launch",
 AGC = CudaKernel("agc.cu", "agc_launch",
                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _F, _P])
 
-ALL = (FOLD, ADPCM, IIR, AGC)
+# squelch_launch(x, level, open0, hang0, y, power_db, open, hang, rows, n,
+#                window, cplx, level_per_row, hang_windows, stream)
+SQUELCH = CudaKernel("squelch.cu", "squelch_launch",
+                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+# adpcm_seq_launch(samples, pred0, idx0, out, stride, pred, idx, rows, ns,
+#                  stream)
+ADPCM_SEQ = CudaKernel("adpcm_seq.cu", "adpcm_seq_launch",
+                       [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P])
+
+ALL = (FOLD, ADPCM, IIR, AGC, SQUELCH, ADPCM_SEQ)
 
 
 def stream_handle(device) -> int:

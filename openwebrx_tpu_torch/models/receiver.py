@@ -1,7 +1,8 @@
-"""Per-client demodulator chain: Selector → demodulator → client audio.
+"""Full receiver chains: the per-client demodulator (Selector → demodulator
+→ client audio) and the per-device waterfall.
 
 Counterpart of ``DEMOD_FACTORY``, ``MODE_BANDPASS``,
-``ClientDemodulatorChain`` and ``build_program`` in
+``ClientDemodulatorChain``, ``FftChain`` and ``build_program`` in
 ``openwebrx_tpu/models/receiver.py``.  An unknown mode raises KeyError and a
 rate pair the chain cannot plan raises ValueError, as in the reference.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 from openwebrx_tpu_torch.models.analog import Am, NFm, RawAm, SAm, Ssb, WFm
 from openwebrx_tpu_torch.models.clientaudio import ClientAudioChain
 from openwebrx_tpu_torch.models.selector import Selector
-from openwebrx_tpu_torch.models.stages import plan_block_size
+from openwebrx_tpu_torch.models.stages import WaterfallStage, plan_block_size
 from openwebrx_tpu_torch.ops.formats import Format, StreamSpec
 from openwebrx_tpu_torch.runtime.chain import Chain, Program
 
@@ -79,6 +80,17 @@ class ClientDemodulatorChain(Chain):
             return
         self.__init__(self.in_rate, self.audio_rate, mode, self.compression,
                       name=self.name)
+
+
+class FftChain(Chain):
+    """Device waterfall: one WaterfallStage (``compress`` for ADPCM rows)."""
+
+    def __init__(self, fft_size: int = 4096, fps: float = 9.0,
+                 add_db: float = -70.0, name: str = "fft",
+                 compress: bool = False):
+        self.waterfall = WaterfallStage(fft_size, fps, add_db,
+                                        compress=compress)
+        super().__init__([self.waterfall], name=name)
 
 
 def build_program(chain: Chain, in_rate: float, batch_shape=(),

@@ -1,8 +1,7 @@
 """Stage wrappers for the DSP ops of the analog chains.
 
-Counterpart of the stages of ``openwebrx_tpu/models/stages.py`` that the
-analog demodulator chains run (every mode of ``DEMOD_FACTORY``; the
-waterfall's stage is not ported yet), with the same control surface
+Counterpart of ``openwebrx_tpu/models/stages.py``: the stages of every
+analog demodulator chain and the waterfall, with the same control surface
 (live setters bump the params version) and the same block negotiation:
 every stage declares ``ratio()`` and ``divisor()`` and
 ``plan_block_size`` picks the smallest block of about a target duration
@@ -18,8 +17,8 @@ import numpy as np
 import torch
 
 from openwebrx_tpu_torch.ops import (adpcm, agc, bandpass, convert, demod,
-                                     fir, firdes, iir, nco, noisefilter,
-                                     squelch)
+                                     fftops, fir, firdes, iir, nco,
+                                     noisefilter, squelch)
 from openwebrx_tpu_torch.ops.formats import Format, StreamSpec
 from openwebrx_tpu_torch.runtime.chain import Chain, Stage, digest
 
@@ -451,6 +450,77 @@ class AgcStage(OpStage):
 
     def signature(self):
         return ("agc", self.profile, self.chunk)
+
+
+# -------------------------------------------------------------- waterfall --
+class WaterfallStage(OpStage):
+    """Fft → LogAveragePower → FftSwap.  Terminal stage: y is (...,
+    rows, fft_size) float32 dB rows, or with ``compress`` their ADPCM wire
+    bytes, (..., rows, padded bytes) uint8, whose first
+    ``wire_bytes_per_row`` bytes a row are the payload.  Any block size
+    works: plan() fixes rows per block ≈ fps·block/rate and spaces the
+    averaged frames uniformly inside the block."""
+
+    def __init__(self, fft_size: int, fps: float, add_db: float = -70.0,
+                 overlap_factor: float = 0.3, name: str = "waterfall",
+                 compress: bool = False):
+        self.name = name
+        self.fft_size = int(fft_size)
+        self.fps = float(fps)
+        self.add_db = float(add_db)
+        self.overlap_factor = overlap_factor
+        # compress: dB×100 int16 rows, 10 pad samples, exact IMA from a
+        # fresh codec per row (the client resets its codec per message)
+        self.compress = bool(compress)
+        self.wire_bytes_per_row = adpcm.wire_bytes_per_row(self.fft_size)
+        self._window_dev = None
+        self._codec0 = None
+
+    def plan(self, in_spec, block):
+        self.in_spec = in_spec
+        self.block = block
+        self.rows = max(1, round(self.fps * block / in_spec.rate))
+        # average as many whole frames per row as fit
+        self.averages = max(1, block // (self.fft_size * self.rows))
+        nframes = self.rows * self.averages
+        stride = block // nframes
+        self.ends = ((np.arange(nframes) + 1) * stride).astype(np.int64)
+        self.window = fftops.hann_window(self.fft_size)
+        out_rate = in_spec.rate * self.rows / block
+        return in_spec.with_format(Format.FLOAT).with_rate(out_rate), self.rows
+
+    def _out_spec(self, in_spec):
+        return in_spec.with_format(Format.FLOAT)
+
+    def init_state(self, batch_shape, device):
+        return fftops.fft_init(self.fft_size, self.fft_size, batch_shape, device)
+
+    def params(self, device):
+        # the window is a design-time constant, kept on the device
+        if self._window_dev is None or self._window_dev.device != device:
+            self._window_dev = torch.as_tensor(self.window, device=device)
+        return self._window_dev
+
+    def apply(self, state, params, x):
+        state, p = fftops.fft_power_at(state, params, x, self.fft_size,
+                                       self.ends)
+        rows = fftops.fft_swap(fftops.log_average(p, self.averages,
+                                                  self.add_db))
+        if not self.compress:
+            return state, rows, {}
+        s = adpcm.fft_row_samples(rows)
+        lead = tuple(s.shape[:-1])
+        # the fresh codec state of every row, kept: the encoder only reads
+        # it, and making it anew costs two launches a block
+        if (self._codec0 is None or tuple(self._codec0[0].shape) != lead
+                or self._codec0[0].device != s.device):
+            self._codec0 = adpcm.adpcm_init(lead, device=s.device)
+        _, (bytes_, _) = adpcm.adpcm_encode_seq(self._codec0, s)
+        return state, bytes_, {}
+
+    def signature(self):
+        return ("waterfall", self.fft_size, self.rows, self.averages,
+                self.add_db, self.compress)
 
 
 # ------------------------------------------------------------------- rds --

@@ -1,4 +1,5 @@
-"""IMA ADPCM codec for client audio (stride-parallel encode, host framing).
+"""IMA ADPCM codec: stride-parallel audio encode, exact waterfall-row encode,
+host framing.
 
 Counterpart of ``openwebrx_tpu/ops/adpcm.py``.  The wire format matches the
 reference browser decoder: "SYNC" + int16le step index + int16le predictor,
@@ -15,6 +16,12 @@ states.  On a CPU tensor both are their plain versions
 (:func:`adpcm_encode_plain`, :func:`encode_strides_plain`).  Bytes, stride
 states and carried state must equal the reference bit for bit on
 identical int16 input.
+
+Waterfall rows carry no codec state on the wire, so they are encoded as
+one exact continuous IMA recurrence a row (:func:`adpcm_encode_seq`): on a
+CUDA tensor one launch of ``csrc/adpcm_seq.cu``, on a CPU tensor
+:func:`adpcm_encode_seq_plain`.  Its bytes, stride states and final state
+equal the reference bit for bit as well.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import numpy as np
 import torch
 
 from openwebrx_tpu_torch import check_on, resolve_device
-from openwebrx_tpu_torch.kernels import ADPCM, stream_handle
+from openwebrx_tpu_torch.kernels import ADPCM, ADPCM_SEQ, stream_handle
 from openwebrx_tpu_torch.ops import wrap32
 
 IMA_INDEX_TABLE = np.array([-1, -1, -1, -1, 2, 4, 6, 8, -1, -1, -1, -1, 2, 4, 6, 8], np.int32)
@@ -44,6 +51,7 @@ IMA_STEP_TABLE = np.array([
 # bytes per independently encoded stride; also the sync-header interval
 STATE_STRIDE = 100
 SYNC_INTERVAL = STATE_STRIDE
+COMPRESS_FFT_PAD_N = 10  # the client skips this many samples of a row
 
 
 def adpcm_init(batch_shape=(), device="cuda"):
@@ -212,6 +220,100 @@ def adpcm_encode(state, samples: torch.Tensor):
                  bytes_.data_ptr(), stride.data_ptr(), new_state[0].data_ptr(),
                  new_state[1].data_ptr(), lanes, s, stream_handle(dev))
     return new_state, (bytes_, stride)
+
+
+def adpcm_encode_seq_plain(state, samples: torch.Tensor):
+    """Plain version of :func:`adpcm_encode_seq`: the recurrence as a
+    Python loop over the row's bytes."""
+    pred, idx = state
+    x = samples.to(torch.int32)
+    table = _step_table(torch.int32, samples.device)
+    out, strides = [], []
+    for i in range(x.shape[-1] // 2):
+        pred, idx, lo = _encode_nibble(pred, idx, x[..., 2 * i], table)
+        pred, idx, hi = _encode_nibble(pred, idx, x[..., 2 * i + 1], table)
+        out.append((lo | (hi << 4)).to(torch.uint8))
+        if i % STATE_STRIDE == STATE_STRIDE - 1:
+            strides.append(pack_codec_state(pred, idx))
+    lead = tuple(samples.shape[:-1])
+    stride = (torch.stack(strides, dim=-1) if strides else
+              torch.zeros(lead + (0,), dtype=torch.int32, device=samples.device))
+    return (pred, idx), (torch.stack(out, dim=-1), stride)
+
+
+def adpcm_encode_seq(state, samples: torch.Tensor):
+    """Exact continuous IMA encode (waterfall rows): int16 samples (..., 2N)
+    from start states (predictor, index 0..88) (...,) int32 → (new_state,
+    (bytes (..., N) uint8, stride (..., N // STATE_STRIDE) int32)), where
+    stride is the packed codec state after every STATE_STRIDE-th byte.  On
+    a CUDA tensor one launch of the kernel, on a CPU tensor
+    :func:`adpcm_encode_seq_plain`; the state must lie on the samples'
+    device."""
+    pred0, idx0 = state
+    dev = samples.device
+    check_on(dev, pred0, idx0)
+    lead = tuple(samples.shape[:-1])
+    two_n = samples.shape[-1] if samples.dim() else 0
+    if samples.dtype != torch.int16 or two_n == 0 or two_n % 2:
+        raise ValueError(f"samples must be (..., 2N) int16 with N > 0, got "
+                         f"{tuple(samples.shape)} {samples.dtype}")
+    for name, t in (("predictor", pred0), ("index", idx0)):
+        if t.dtype != torch.int32 or tuple(t.shape) != lead:
+            raise ValueError(f"{name} state must be {lead} int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if dev.type == "cpu":
+        return adpcm_encode_seq_plain(state, samples)
+    n = two_n // 2
+    bytes_ = torch.empty(lead + (n,), dtype=torch.uint8, device=dev)
+    stride = torch.empty(lead + (n // STATE_STRIDE,), dtype=torch.int32, device=dev)
+    new_state = (torch.empty(lead, dtype=torch.int32, device=dev),
+                 torch.empty(lead, dtype=torch.int32, device=dev))
+    rows = int(np.prod(lead, dtype=np.int64))
+    if rows:
+        x = samples.contiguous()
+        ADPCM_SEQ.launch(x.data_ptr(), pred0.contiguous().data_ptr(),
+                         idx0.contiguous().data_ptr(), bytes_.data_ptr(),
+                         stride.data_ptr(), new_state[0].data_ptr(),
+                         new_state[1].data_ptr(), rows, two_n,
+                         stream_handle(dev))
+    return new_state, (bytes_, stride)
+
+
+def fft_row_samples(rows_db: torch.Tensor) -> torch.Tensor:
+    """Waterfall rows (..., N) in dB → the encoder's int16 input: dB×100,
+    clipped and truncated, COMPRESS_FFT_PAD_N copies of the first sample in
+    front, and the last repeated up to a multiple of 8 samples (whole
+    16-byte vectors; the bytes past the wire payload are trimmed on the
+    host)."""
+    s = torch.clamp(rows_db * 100.0, -32768, 32767).to(torch.int16)
+    lead = tuple(s.shape[:-1])
+    s = torch.cat([s[..., :1].expand(lead + (COMPRESS_FFT_PAD_N,)), s], dim=-1)
+    extra = (-s.shape[-1]) % 8
+    if extra:
+        s = torch.cat([s, s[..., -1:].expand(lead + (extra,))], dim=-1)
+    return s
+
+
+def wire_bytes_per_row(fft_size: int) -> int:
+    """Bytes of one compressed waterfall row on the wire."""
+    return (fft_size + COMPRESS_FFT_PAD_N + 1) // 2
+
+
+def compress_fft_rows(rows_db, device="cuda"):
+    """Compress waterfall rows as the reference FftAdpcm does: per row,
+    dB×100 as int16, 10 warm-up pad samples in front, a fresh codec per
+    row, all rows in one encode on ``device``.  rows_db (R, N) float32
+    (numpy or a tensor) → list of R ``bytes``, each (N + 10 + 1) // 2
+    long."""
+    dev = resolve_device(device)
+    if not torch.is_tensor(rows_db):
+        rows_db = torch.from_numpy(np.asarray(rows_db, np.float32))
+    rows = torch.atleast_2d(rows_db.to(dev))
+    s = fft_row_samples(rows)
+    _, (bytes_, _) = adpcm_encode_seq(adpcm_init(s.shape[:-1], device=dev), s)
+    raw = bytes_.cpu().numpy()
+    nbytes = wire_bytes_per_row(rows.shape[-1])
+    return [raw[i, :nbytes].tobytes() for i in range(raw.shape[0])]
 
 
 def adpcm_decode_np(data: bytes, state=(0, 0)):

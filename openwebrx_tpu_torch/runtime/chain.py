@@ -1,7 +1,8 @@
 """Stage/Chain/Program: the block-processing chain graph and its runner.
 
-Counterpart of ``digest``, ``Stage``, ``Chain``, ``Program`` and
-``choose_block_size`` in ``openwebrx_tpu/runtime/chain.py``.  A chain is a
+Counterpart of ``digest``, ``Stage``, ``Chain``, ``Fanout``, ``Program``,
+the host packing helpers and ``choose_block_size`` in
+``openwebrx_tpu/runtime/chain.py``.  A chain is a
 description; planning it against an input StreamSpec and block size fixes
 every stage's shapes, and ``apply`` runs the stages eagerly on tensors.  A
 ``Program`` owns one planned chain's streaming state on a device.  All stages act on the last
@@ -22,7 +23,9 @@ aggregate version changed.
 
 The reference's tunnel plumbing (complex packing at jit boundaries, the
 fused int32 output buffer, the transport keepalive) is not ported: results
-come back as the same host objects through pinned asynchronous copies.
+come back as the same host objects through pinned asynchronous copies, and
+a batch of blocks (``Program.join_pending``) is a list of pending results
+behind one event.
 """
 
 from __future__ import annotations
@@ -154,6 +157,52 @@ class Chain(Stage):
         return ("chain",) + tuple(w.signature() for w in self.workers)
 
 
+class Fanout(Stage):
+    """Parallel branches over the same input block: y = {name: y_branch},
+    aux = {"name.key": value}.  Branches may carry different batch shapes
+    (e.g. a () waterfall next to a (16,) channel batch) via
+    ``batch_shapes``."""
+
+    def __init__(self, branches: list[tuple[str, Stage]],
+                 batch_shapes: dict[str, tuple] | None = None,
+                 name: str = "fanout"):
+        self.branches = list(branches)
+        self.batch_shapes = dict(batch_shapes or {})
+        self.name = name
+
+    def plan(self, in_spec, block: int):
+        for _, b in self.branches:
+            b.plan(in_spec, block)
+        return in_spec, block
+
+    def init_state(self, batch_shape, device):
+        return tuple(b.init_state(self.batch_shapes.get(k, batch_shape), device)
+                     for k, b in self.branches)
+
+    def params(self, device):
+        return tuple(b.params(device) for _, b in self.branches)
+
+    def params_version(self) -> int:
+        return self._pver + sum(b.params_version() for _, b in self.branches)
+
+    def apply(self, state, params, x):
+        new_state = []
+        ys = {}
+        aux = {}
+        for i, (k, b) in enumerate(self.branches):
+            s, y, a = b.apply(state[i], params[i], x)
+            new_state.append(s)
+            ys[k] = y
+            for kk, vv in a.items():
+                aux[f"{k}.{kk}"] = vv
+        return tuple(new_state), ys, aux
+
+    def signature(self):
+        return ("fanout",) + tuple(
+            (k, b.signature(), self.batch_shapes.get(k))
+            for k, b in self.branches)
+
+
 # ------------------------------------------------------------ streaming --
 class Pending:
     """One dispatched block's outputs: device tensors, or pinned host
@@ -217,6 +266,33 @@ def as_input_block(x, block: int, complex_input: bool,
     return torch.view_as_complex(t.contiguous())
 
 
+def host_pack_complex(x: np.ndarray) -> np.ndarray:
+    """Host side: complex64 → zero-copy (..., 2) float32 view."""
+    x = np.ascontiguousarray(x, dtype=np.complex64)
+    return x.view(np.float32).reshape(x.shape + (2,))
+
+
+def host_as_complex64(block: np.ndarray) -> np.ndarray:
+    """Host side: any source block form → complex64 samples: complex64,
+    packed (n, 2) float32, or packed (n, 2) int16 (±32768 ↔ ±1.0) or uint8
+    (rtl-sdr bias 127.4, ±128) wire samples."""
+    if np.iscomplexobj(block):
+        return np.ascontiguousarray(block, np.complex64)
+    if block.dtype == np.int16:
+        f = block.astype(np.float32) * (1.0 / 32768.0)
+        return f.view(np.complex64)[..., 0]
+    if block.dtype == np.uint8:
+        f = (block.astype(np.float32) - 127.4) * (1.0 / 128.0)
+        return np.ascontiguousarray(f).view(np.complex64)[..., 0]
+    return np.ascontiguousarray(block, np.float32).view(np.complex64)[..., 0]
+
+
+def host_unpack_complex(v) -> np.ndarray:
+    """Host side: (..., 2) float32 → complex64 (zero copy)."""
+    a = np.ascontiguousarray(np.asarray(v, dtype=np.float32))
+    return a.view(np.complex64)[..., 0]
+
+
 class Program:
     """A chain planned against (in_spec, block, batch_shape) on one device:
     owns the streaming state and runs one block per dispatch."""
@@ -264,6 +340,27 @@ class Program:
     def process(self, x):
         """One block, synchronous: → (y, aux) as numpy."""
         return self.fetch(*self.dispatch(x))
+
+    def dispatch_quiet(self, x):
+        """Enqueue one block without starting its copies to the host → (Pending,
+        None), for callers that deliver several blocks at once
+        (join_pending)."""
+        return self.dispatch(x, to_host=False)
+
+    def join_pending(self, pends):
+        """Start the host copies of several dispatch_quiet results behind one
+        event → (list of Pending, n) for fetch_many."""
+        joined = [p for p, _ in pends]
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            joined = [Pending(*tree_map(_to_host_async, (p.y, p.aux)), event)
+                      for p in joined]
+            event.record(torch.cuda.current_stream(self.device))
+        return joined, len(pends)
+
+    def fetch_many(self, joined, n: int):
+        """Wait for a join_pending batch → list of n (y, aux), in order."""
+        return [finish_fetch(p) for p in joined[:n]]
 
     def rebuild(self, keep_state: bool = True):
         """Re-plan after graph surgery (e.g. a mode switch), carrying over

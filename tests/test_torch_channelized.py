@@ -339,7 +339,12 @@ class TestGuards:
         or compare_bank_ms.py, imports jax or the JAX package (an AST scan:
         this process has jax loaded already)."""
         files = sorted((REPO / "openwebrx_tpu_torch").rglob("*.py"))
-        assert REPO / "openwebrx_tpu_torch" / "ops" / "iir.py" in files
+        for rel in ("ops/iir.py", "ops/squelch.py", "ops/adpcm.py", "ops/fftops.py",
+                    "ops/convert.py", "ops/timing.py", "ops/fsk.py",
+                    "models/stages.py", "models/receiver.py", "models/secondary.py",
+                    "models/fax.py", "models/digital_voice.py",
+                    "runtime/chain.py", "runtime/bank.py"):
+            assert REPO / "openwebrx_tpu_torch" / rel in files, rel
         files += [REPO / "chip_smoke.py", REPO / "profile_torch_bank.py",
                   REPO / "compare_bank_ms.py"]
         assert len(files) > 20

@@ -1,5 +1,5 @@
 """The port's kernels (openwebrx_tpu_torch): polyphase fold, ADPCM encode,
-first-order IIR and AGC.
+first-order IIR, AGC and squelch.
 
 On the CPU the wrappers run their plain PyTorch versions, which are held
 against the JAX reference on the same numpy inputs.  The CUDA kernels are
@@ -17,11 +17,13 @@ from openwebrx_tpu.ops import channelizer as jpfb
 from openwebrx_tpu.ops.pallas_fold import polyphase_fold as jax_fold
 from openwebrx_tpu.ops import agc as jagc
 from openwebrx_tpu.ops import iir as jiir
+from openwebrx_tpu.ops import squelch as jsq
 from openwebrx_tpu_torch import kernels
 from openwebrx_tpu_torch.ops import adpcm as tadpcm
 from openwebrx_tpu_torch.ops import agc as tagc
 from openwebrx_tpu_torch.ops import iir as tiir
 from openwebrx_tpu_torch.ops import channelizer as tpfb
+from openwebrx_tpu_torch.ops import squelch as tsq
 from openwebrx_tpu_torch.ops.fold import polyphase_fold, polyphase_fold_plain
 
 
@@ -438,3 +440,137 @@ class TestAgc:
             torch.cuda.synchronize()
             assert torch.equal(kg, pg) and torch.equal(kh, ph)
             assert torch.equal(ky, py)
+
+
+# power_db, the window mean of |x|² in dB: the kernel and torch.mean (and
+# XLA's reduction) sum in different orders, and |x| is a hypot in the plain
+# versions but re² + im² in the kernel; 1e-3 dB is ~2e-4 of relative power
+SQUELCH_DB_ATOL = 1e-3
+
+
+def _squelch_scene(rows, n, window, seed, dtype=np.complex64):
+    """Rows over 80 dB of level with per-row thresholds near them, plus
+    silent rows, NaN rows and a burst that arms the hang and runs out."""
+    rng = np.random.default_rng(seed)
+    scale = 10.0 ** rng.uniform(-4, 0, (rows, 1))
+    x = rng.standard_normal((rows, n)) * scale
+    if dtype == np.complex64:
+        x = x + 1j * rng.standard_normal((rows, n)) * scale
+    x = x.astype(dtype)
+    level = (10 * np.log10(scale[:, 0] ** 2 * (2 if dtype == np.complex64 else 1))
+             + rng.uniform(-6, 6, rows)).astype(np.float32)
+    x[0] = 0                               # silence: −300 dB, never open
+    x[1, : n // 2] = np.nan                # NaN windows never open
+    if n // window >= 4:
+        x[2] = 0
+        x[2, window:2 * window] = 1.0      # one loud window: hang 2, then out
+        level[2] = -20.0
+    return x, level
+
+
+def _state(rng, rows, dev="cpu"):
+    return (torch.from_numpy(rng.integers(0, 2, rows).astype(bool)).to(dev),
+            torch.from_numpy(rng.integers(0, 3, rows, dtype=np.int32)).to(dev))
+
+
+def _bits(t):
+    """A tensor's bit pattern: NaN samples that an open gate passes on
+    compare equal, and +0.0 differs from −0.0."""
+    return (torch.view_as_real(t) if t.is_complex() else t).view(torch.int32)
+
+
+def _gates_exact_where_clear(pk, pp, level, yk, yp, sk, sp):
+    """Rows whose every window lies more than the tolerance from its level
+    must have identical gates, hang and output."""
+    clear = ((pp - level[:, None]).abs() > SQUELCH_DB_ATOL) | pp.isnan()
+    rows = clear.all(dim=-1)
+    assert rows.float().mean() > 0.9
+    assert torch.equal(_bits(yk)[rows], _bits(yp)[rows])
+    assert torch.equal(sk[0][rows], sp[0][rows])
+    assert torch.equal(sk[1][rows], sp[1][rows])
+
+
+class TestSquelch:
+    @pytest.mark.parametrize("dtype,n,window", [
+        (np.complex64, 2400, 600),     # four windows a row
+        (np.float32, 1200, 300),       # real input
+        (np.complex64, 600, 600),      # one window, as the USB bank
+    ])
+    def test_plain_matches_jax(self, dtype, n, window):
+        x, level = _squelch_scene(6, n, window, seed=n, dtype=dtype)
+        rng = np.random.default_rng(1)
+        st = _state(rng, 6)
+        js, jy, jp = jsq.squelch_apply(tuple(jnp.asarray(v.numpy()) for v in st),
+                                       jnp.asarray(level), jnp.asarray(x), window)
+        ts, ty, tp = tsq.squelch_apply(st, torch.from_numpy(level),
+                                       torch.from_numpy(x), window)
+        jp = np.asarray(jp)
+        finite = np.isfinite(jp)
+        np.testing.assert_array_equal(np.isnan(tp.numpy()), np.isnan(jp))
+        assert np.abs(tp.numpy()[finite] - jp[finite]).max() <= SQUELCH_DB_ATOL
+        np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+        for a, b in zip(ts, js):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        # the gated output is +0.0 where closed, never −0.0
+        closed = ty.numpy() == 0
+        assert not np.signbit(ty.numpy().real[closed]).any()
+        if n // window >= 4:
+            # burst in window 1: open there and 2 windows on, closed in 3 of 4
+            assert int(ts[1][2]) == 0 and not bool(ts[0][2])
+
+    def test_plain_scalar_level_and_zero_dim_state(self):
+        """One threshold for all rows, and config #1's 0-dim state."""
+        x, _ = _squelch_scene(3, 1200, 300, seed=5)
+        for xs, st in ((x, tsq.squelch_init((3,), device="cpu")),
+                       (x[2], tsq.squelch_init((), device="cpu"))):
+            js, jy, jp = jsq.squelch_apply(tuple(jnp.asarray(v.numpy()) for v in st),
+                                           jnp.asarray(-30.0, jnp.float32),
+                                           jnp.asarray(xs), 300)
+            ts, ty, tp = tsq.squelch_apply(st, torch.tensor(-30.0),
+                                           torch.from_numpy(xs), 300)
+            np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+            assert tp.shape == jp.shape
+            for a, b in zip(ts, js):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+    def test_rejects_bad_shapes(self):
+        st = tsq.squelch_init((2,), device="cpu")
+        lvl = torch.tensor(-150.0)
+        with pytest.raises(ValueError):
+            tsq.squelch_apply(st, lvl, torch.zeros(2, 500, dtype=torch.complex64), 300)
+        with pytest.raises(ValueError):
+            tsq.squelch_apply(st, lvl, torch.zeros(3, 600, dtype=torch.complex64), 300)
+        with pytest.raises(ValueError):
+            tsq.squelch_apply((st[0], st[1].to(torch.int64)), lvl,
+                              torch.zeros(2, 600, dtype=torch.complex64), 300)
+
+    def test_default_device_needs_a_card(self):
+        """squelch_init's default device is CUDA: without a card it
+        raises; the stage hands the apply its tensors' device."""
+        with pytest.raises((RuntimeError, ValueError)):
+            tsq.squelch_init((2,))
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("dtype,rows,n,window", [
+        (np.complex64, 1024, 600, 600),     # USB bank
+        (np.complex64, 1024, 2400, 2400),   # NFM bank
+        (np.complex64, 2048, 600, 600),     # AM bank
+        (np.complex64, 128, 50000, 12500),  # WFM bank: tiled, 100 KB windows
+        (np.complex64, 1, 4800, 2400),      # config #1
+        (np.complex64, 16, 1536, 768),      # config #4's audio branch
+        (np.float32, 5, 4801, 4801),        # real, unaligned
+        (np.complex64, 3, 40000, 400),      # many windows, tiled
+    ])
+    def test_kernel_matches_plain_on_card(self, cuda_device, dtype, rows, n, window):
+        x, level = _squelch_scene(rows, n, window, seed=rows + n, dtype=dtype)
+        rng = np.random.default_rng(rows)
+        st = _state(rng, rows, cuda_device)
+        xt = torch.from_numpy(x).to(cuda_device)
+        lt = torch.from_numpy(level).to(cuda_device)
+        sk, yk, pk = tsq.squelch_apply(st, lt, xt, window)
+        sp, yp, pp = tsq.squelch_apply_plain(st, lt, xt, window)
+        torch.cuda.synchronize()
+        assert torch.equal(pk.isnan(), pp.isnan())
+        fin = ~pp.isnan()
+        assert float((pk[fin] - pp[fin]).abs().max()) <= SQUELCH_DB_ATOL
+        _gates_exact_where_clear(pk, pp, lt, yk, yp, sk, sp)
