@@ -135,6 +135,16 @@ SQUELCH_PATH_CASES = {"usb": ((M, 600), 600), "nfm": ((M, 2400), 2400),
                       "cfg1": ((4800,), 2400), "cfg2": ((64, 600), 600),
                       "cfg2 edge": ((16, 600), 600), "cfg4": ((16, 1536), 768)}
 ADPCM_SEQ_PATH_SHAPES = {(1, SEQ_ROW)}     # one waterfall row a block
+# the first-order IIR (x) on the paths that run one: the NFM and WFM
+# de-emphasis, the AM DC blocker, config #1's de-emphasis
+IIR_PATH_CASES = {"nfm": (M, 2400), "am": (2 * M, 600), "wfm": (128, 9600),
+                  "cfg1": (4800,)}
+# the row encoder's real rows: config #2's waterfall (29 averaged frames of
+# a 2.4 MS/s block) and the 49.152 MS/s one (600 frames), as (rate, block,
+# frames a second, carriers)
+SEQ_REAL_ROWS = {"cfg2 row": (2.4e6, 120000, 20.0, (-262000.0, 618000.0)),
+                 "wf row": (49.152e6, 2457600, 9.0,
+                            tuple(float((i - 512) * 48000) for i in (100, 517, 900)))}
 
 
 class SmokeFailure(RuntimeError):
@@ -197,6 +207,31 @@ def int16_audio(torch, gen, dev, rows, n):
     audio[::7] *= 4.0                                   # clipped channels
     audio[3::11] = torch.where(audio[3::11] > 0, 1.0, -1.0)   # ±full scale
     return torch.clamp(audio * 32767.0, -32768, 32767).to(torch.int16)
+
+
+def iir_input(torch, gen, dev, shape):
+    """Seeded first-order IIR input: x of ``shape`` and a random
+    (x_prev, y_prev) state."""
+    return ((torch.randn(shape[:-1], generator=gen, device=dev),
+             torch.randn(shape[:-1], generator=gen, device=dev)),
+            torch.randn(shape, generator=gen, device=dev) * 0.3)
+
+
+def waterfall_row(torch, gen, dev, label):
+    """The row encoder's input for one real waterfall row, (1, SEQ_ROW)
+    int16: the float dB row that ``FftChain`` makes on the card from the
+    second of two seeded blocks of SEQ_REAL_ROWS[label], through
+    ``fft_row_samples``."""
+    from openwebrx_tpu_torch.models.receiver import FftChain
+    from openwebrx_tpu_torch.ops import adpcm
+    from openwebrx_tpu_torch.ops.formats import Format, StreamSpec
+    from openwebrx_tpu_torch.runtime.chain import Program
+    fs, block, fps, carriers = SEQ_REAL_ROWS[label]
+    prog = Program(FftChain(WF_SIZE, fps, compress=False),
+                   StreamSpec(Format.COMPLEX_FLOAT, fs), block, device=dev)
+    rows = [prog.process(b)[0] for b in
+            seeded_blocks(torch, gen, dev, fs, block, 2, carriers, "usb", noise=0.05)]
+    return adpcm.fft_row_samples(torch.from_numpy(rows[-1]).to(dev))
 
 
 def agc_input(torch, gen, dev, shape):
@@ -454,8 +489,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
-    log(f"[card] nvidia-smi: {smi} | torch: {kind} | torch {torch.__version__}"
+    device_kind = torch.cuda.get_device_name(0)
+    log(f"[card] nvidia-smi: {smi} | torch: {device_kind} | torch {torch.__version__}"
         f" cuda {torch.version.cuda}")
 
     # -- 2. build ------------------------------------------------------------
@@ -463,7 +498,12 @@ def main() -> int:
     adpcm_short = kernels.CudaKernel("adpcm.cu", kernels.ADPCM.symbol,
                                      kernels.ADPCM.argtypes,
                                      defines=(f"ADPCM_STRIDE={SHORT_STRIDE}",))
-    builds = (*kernels.ALL, adpcm_short)
+    # seq_serial: the row encoder with one segment (one lane walks the row),
+    # whose slope phase 6 times as the serial nibble step
+    seq_serial = kernels.CudaKernel("adpcm_seq.cu", kernels.ADPCM_SEQ.symbol,
+                                    kernels.ADPCM_SEQ.argtypes,
+                                    defines=("ADPCM_SEQ_SEGMENTS=1", "ADPCM_SEQ_SPAN=1"))
+    builds = (*kernels.ALL, adpcm_short, seq_serial)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         secs = list(pool.map(lambda k: k.build(), builds))
@@ -557,20 +597,29 @@ def main() -> int:
         f"new_state identical = {same}")
     check(same, "adpcm_encode on the card differs from the CPU plain path")
 
-    # first-order IIR at the NFM bank's de-emphasis: (1024, 2400) at 48 kHz
-    deemph = iir.deemphasis_coeffs(48000.0, 150e-6)
-    iir_x = torch.randn(M, 2400, generator=gen, device=dev) * 0.3
-    iir_st = (torch.randn(M, generator=gen, device=dev),
-              torch.randn(M, generator=gen, device=dev))
-    (ix_k, iy_k), y_k = iir.first_order_apply(iir_st, *deemph, iir_x, device=dev)
-    (ix_p, iy_p), y_p = iir.first_order_apply_plain(iir_st, *deemph, iir_x)
-    torch.cuda.synchronize()
-    iir_err = max(float((y_k - y_p).abs().max()), float((iy_k - iy_p).abs().max()))
-    iir_tol = IIR_RTOL * float(y_p.abs().max())
-    log(f"[check] iir x{tuple(iir_x.shape)}: max_abs_err {iir_err:.3e} "
-        f"(tolerance {iir_tol:.3e}); x state identical = {torch.equal(ix_k, ix_p)}")
-    check(iir_err <= iir_tol and torch.equal(ix_k, ix_p),
-          f"IIR kernel disagrees: {iir_err} > {iir_tol}")
+    # the first-order IIR at every path's shape, each with the DC blocker's
+    # coefficient (a1 near 1) and the de-emphasis' (a path uses one of
+    # them), from random start states: y and y_last within IIR_RTOL of the
+    # output scale, x_last identical
+    iir_coeffs = {"dc block": iir.dc_block_coeffs(12000.0),
+                  "de-emphasis": iir.deemphasis_coeffs(48000.0, 150e-6)}
+    iir_in = {}                    # label: (state, x, coefficients) timed in phase 6
+    iir_err = 0.0
+    for label, shape in IIR_PATH_CASES.items():
+        st, x = iir_input(torch, gen, dev, shape)
+        for co_name, co in iir_coeffs.items():
+            (ix_k, iy_k), y_k = iir.first_order_apply(st, *co, x, device=dev)
+            (ix_p, iy_p), y_p = iir.first_order_apply_plain(st, *co, x)
+            torch.cuda.synchronize()
+            err = max(float((y_k - y_p).abs().max()), float((iy_k - iy_p).abs().max()))
+            tol = IIR_RTOL * float(y_p.abs().max())
+            iir_err = max(iir_err, err)
+            log(f"[check] iir {label} x{tuple(x.shape)} {co_name} (a1 {co[2]:.6f}): "
+                f"max_abs_err {err:.3e} (tolerance {tol:.3e}); x state identical = "
+                f"{torch.equal(ix_k, ix_p)}")
+            check(err <= tol and torch.equal(ix_k, ix_p),
+                  f"IIR kernel disagrees ({label}, {co_name}): {err} > {tol}")
+        iir_in[label] = (st, x, iir_coeffs["dc block" if label == "am" else "de-emphasis"])
 
     # AGC at every path's shape, channel levels spread over 80 dB and random
     # start states; then all-zero rows and silence-to-full-scale steps from
@@ -673,25 +722,37 @@ def main() -> int:
                  torch.tensor(-20.0, device=dev), scene, 600,
                  expect=([False] * 6 + [True] * 2, [0] * 6 + [1] * 2))
 
-    # the exact IMA row encoder: the waterfall's row (dB rows as the stage
-    # makes them, fresh state), 16 rows from random states, full-scale
-    # square waves, and the slope's shorter row; bytes, stride states and
-    # final state identical
+    # the exact IMA row encoder: real waterfall rows (config #2's and the
+    # 49.152 MS/s one, made by FftChain on the card), a random dB row, audio,
+    # 16 rows from random states, full-scale square waves, rows with a tail
+    # and short rows; each also with the adversarial test inputs (forced 1:
+    # every guess at (-32768, 88); forced 2: no guessed run taken, the sweep
+    # encodes the row itself); bytes, stride states and final state identical
     seq_err = 0
+    seq_plain = {}
 
-    def seq_case(label, st, x):
+    def seq_case(label, st, x, forced=0):
         nonlocal seq_err
-        ks, (kb, kst) = adpcm.adpcm_encode_seq(st, x)
-        ps, (pb, pst) = adpcm.adpcm_encode_seq_plain(st, x)
+        diag = torch.zeros(x.shape[0], adpcm.SEQ_DIAG_WORDS, dtype=torch.int32,
+                           device=dev)
+        ks, (kb, kst) = adpcm.encode_seq_kernel(st, x, forced=forced, diag=diag)
+        if label not in seq_plain:
+            seq_plain[label] = adpcm.adpcm_encode_seq_plain(st, x)
+        ps, (pb, pst) = seq_plain[label]
         torch.cuda.synchronize()
         n_bytes = int((kb != pb).sum())
         seq_err = max(seq_err, int((kb.to(torch.int32) - pb.to(torch.int32)).abs().max()))
         same = (n_bytes == 0 and torch.equal(kst, pst)
                 and all(torch.equal(a, b) for a, b in zip(ks, ps)))
-        log(f"[check] adpcm_encode_seq {label} {tuple(x.shape)}: bytes, stride "
-            f"states {tuple(kst.shape)} and final state identical = {same} "
-            f"({n_bytes} bytes differ)")
-        check(same, f"adpcm_encode_seq kernel differs ({label})")
+        d = diag.max(dim=0).values.tolist()
+        log(f"[check] adpcm_encode_seq {label} {tuple(x.shape)} forced {forced}: "
+            f"bytes, stride states {tuple(kst.shape)} and final state identical = "
+            f"{same} ({n_bytes} bytes differ); most in a row: {d[0]} run ends "
+            f"looked up, {d[1]} nibbles encoded by the sweep, first-pass run "
+            f"{d[2]} nibbles")
+        check(same, f"adpcm_encode_seq kernel differs ({label}, forced {forced})")
+        return {"run_ends": d[0], "sweep_nibbles": d[1], "first_pass_nibbles": d[2],
+                "cycles_total_setup_pass1_sweep_output": d[3:]}
 
     def random_seq_state(rows):
         return (torch.randint(-32768, 32767, (rows,), generator=gen, device=dev,
@@ -699,19 +760,29 @@ def main() -> int:
                 torch.randint(0, 89, (rows,), generator=gen, device=dev,
                               dtype=torch.int32))
 
+    seq_in = {label: (adpcm.adpcm_init((1,), device=dev),
+                      waterfall_row(torch, gen, dev, label)) for label in SEQ_REAL_ROWS}
     wf_rows_db = (torch.randn(1, WF_SIZE, generator=gen, device=dev) * 8 - 80)
     wf_rows_db[0, 1000:1004] = -10.0
     wf_samples = adpcm.fft_row_samples(wf_rows_db)
-    check(tuple(wf_samples.shape) == (1, SEQ_ROW), f"waterfall row {wf_samples.shape}")
-    seq_in = {"waterfall": (adpcm.adpcm_init((1,), device=dev), wf_samples)}
+    check(all(tuple(x.shape) == (1, SEQ_ROW) for x in
+              (wf_samples, *(x for _, x in seq_in.values()))),
+          f"waterfall rows {wf_samples.shape}")
+    seq_in["random dB row"] = (adpcm.adpcm_init((1,), device=dev), wf_samples)
+    seq_in["audio"] = (random_seq_state(1), int16_audio(torch, gen, dev, 1, SEQ_ROW))
     seq_in["16 rows"] = (random_seq_state(16), int16_audio(torch, gen, dev, 16, SEQ_ROW))
     t = torch.arange(SEQ_ROW, device=dev)
     square = torch.stack([torch.where((t // per) % 2 == 0, 32767, -32768)
                           for per in (1, 2, 7, 64)]).to(torch.int16)
     seq_in["square"] = (random_seq_state(4), square)
     seq_in["short row"] = (random_seq_state(1), int16_audio(torch, gen, dev, 1, SEQ_SHORT_ROW))
-    for label, (st, x) in seq_in.items():
-        seq_case(label, st, x)
+    seq_in["tail"] = (random_seq_state(3), int16_audio(torch, gen, dev, 3, 2058))
+    seq_in["400 x 40"] = (random_seq_state(40), int16_audio(torch, gen, dev, 40, 400))
+    seq_in["6"] = (random_seq_state(2), int16_audio(torch, gen, dev, 2, 6))
+    seq_diag = {}
+    for forced in (0, 1, 2):
+        for label, (st, x) in seq_in.items():
+            seq_diag[(label, forced)] = seq_case(label, st, x, forced)
     rows_host = wf_rows_db.cpu().numpy()
     card_wire = adpcm.compress_fft_rows(wf_rows_db, device=dev)
     check(card_wire == adpcm.compress_fft_rows(rows_host, device="cpu")
@@ -917,9 +988,10 @@ def main() -> int:
     # -- 5. the paths at full width ------------------------------------------
     # record the shapes the paths hand the AGC, the ADPCM encoders and the
     # squelch (the stages call them through their modules)
-    seen_agc, seen_adpcm, seen_squelch, seen_seq = set(), set(), set(), set()
+    seen_agc, seen_adpcm, seen_squelch, seen_seq, seen_iir = set(), set(), set(), set(), set()
     agc_apply, adpcm_encode = agc.agc_apply, adpcm.adpcm_encode
     squelch_apply, adpcm_encode_seq = squelch.squelch_apply, adpcm.adpcm_encode_seq
+    first_order_apply = iir.first_order_apply
 
     def agc_recorded(state, profile, x, chunk=agc.CHUNK, device="cuda"):
         seen_agc.add((profile, tuple(x.shape), chunk))
@@ -937,8 +1009,13 @@ def main() -> int:
         seen_seq.add(tuple(x.shape))
         return adpcm_encode_seq(state, x)
 
+    def iir_recorded(state, b0, b1, a1, x, device="cuda"):
+        seen_iir.add(tuple(x.shape))
+        return first_order_apply(state, b0, b1, a1, x, device=device)
+
     agc.agc_apply, adpcm.adpcm_encode = agc_recorded, adpcm_recorded
     squelch.squelch_apply, adpcm.adpcm_encode_seq = squelch_recorded, seq_recorded
+    iir.first_order_apply = iir_recorded
     paths = {}
     launches_by_path = {}
     n_blocks = WARMUP_BLOCKS + TIMED_BLOCKS
@@ -1229,10 +1306,11 @@ def main() -> int:
 
     agc.agc_apply, adpcm.adpcm_encode = agc_apply, adpcm_encode
     squelch.squelch_apply, adpcm.adpcm_encode_seq = squelch_apply, adpcm_encode_seq
+    iir.first_order_apply = first_order_apply
     log(f"[shapes] agc on the paths: {sorted((s, c) for _, s, c in seen_agc)}; "
         f"adpcm_encode on the paths: {sorted(seen_adpcm)}; squelch on the "
         f"paths: {sorted(seen_squelch)}; adpcm_encode_seq on the paths: "
-        f"{sorted(seen_seq)}")
+        f"{sorted(seen_seq)}; iir on the paths: {sorted(seen_iir)}")
     # phase 3 checked exactly these; an empty record fails here too
     path_agc = {(getattr(agc, p), s, c) for p, s, c in AGC_PATH_CASES.values()}
     check(seen_agc == path_agc, f"AGC shapes on the paths {seen_agc} are not "
@@ -1244,6 +1322,8 @@ def main() -> int:
           f"{seen_squelch} are not the expected {path_squelch}")
     check(seen_seq == ADPCM_SEQ_PATH_SHAPES, f"adpcm_encode_seq shapes on the "
           f"paths {seen_seq} are not the expected {ADPCM_SEQ_PATH_SHAPES}")
+    check(seen_iir == set(IIR_PATH_CASES.values()), f"IIR shapes on the paths "
+          f"{seen_iir} are not the expected {set(IIR_PATH_CASES.values())}")
     print(json.dumps({"card": smi, "paths": paths}), flush=True)
 
     # -- 6. kernel timings at the main-path shapes ------------------------------
@@ -1258,16 +1338,25 @@ def main() -> int:
     v_conv = F.conv1d(lhs, wconv, groups=M)
     conv_err = float((torch.complex(v_conv[0], v_conv[1]).T - v_plain).abs().max())
     fold_lib_ms = time_cuda(lambda: F.conv1d(lhs, wconv, groups=M), iters, torch)
+    lhs64 = torch.view_as_real(u64).permute(2, 1, 0).contiguous()
+    wconv64 = bank64.T.contiguous()[:, None, :]
+    conv64_err = float((torch.complex(*F.conv1d(lhs64, wconv64, groups=64)).T
+                        - v64_plain).abs().max())
+    fold64_lib_ms = time_cuda(lambda: F.conv1d(lhs64, wconv64, groups=64), iters, torch)
+    iir_st, iir_x, deemph = iir_in["nfm"]
     iir_ms = time_cuda(lambda: iir.first_order_apply(iir_st, *deemph, iir_x, device=dev),
                        iters, torch)
     iir_plain_ms = time_cuda(lambda: iir.first_order_apply_plain(iir_st, *deemph, iir_x),
                              iters, torch)
     fold_bytes = u.numel() * 8 + bank2.numel() * 4 + v_plain.numel() * 8
     fold_ops = 4 * p_taps * v_plain.numel()        # re+im: P mul-adds each
-    # IIR: x in, y out, four (rows,) state vectors; per sample 2 mul + 1 add
-    # for c[n] and one multiply-add for y[n]
-    iir_bytes = iir_x.numel() * 8 + 4 * M * 4
-    iir_ops = 5 * iir_x.numel()
+
+    def iir_bytes_ops(x):
+        """x in, y out, four (rows,) state vectors; per sample 2 mul + 1 add
+        for c[n] and one multiply-add for y[n]"""
+        return x.numel() * 8 + 4 * 4 * (x.numel() // x.shape[-1]), 5 * x.numel()
+
+    iir_bytes, iir_ops = iir_bytes_ops(iir_x)
 
     def bound(nbytes, nops, ops_per_s=FP32_OPS_PER_S):
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
@@ -1277,7 +1366,9 @@ def main() -> int:
     iir_bound, iir_by = bound(iir_bytes, iir_ops)
     log(f"[time] {smi}: fold kernel {fold_ms:.5f} ms, bound {fold_bound:.5f} ms "
         f"({fold_by}: {fold_bytes} B, {fold_ops} flop), plain {fold_plain_ms:.5f} ms, "
-        f"depthwise F.conv1d {fold_lib_ms:.5f} ms (max diff {conv_err:.2e})")
+        f"depthwise F.conv1d {fold_lib_ms:.5f} ms (max diff {conv_err:.2e}); at "
+        f"u{tuple(u64.shape)} depthwise F.conv1d {fold64_lib_ms:.5f} ms (max diff "
+        f"{conv64_err:.2e})")
     log(f"[time] {smi}: iir kernel {iir_ms:.5f} ms, bound {iir_bound:.5f} ms "
         f"({iir_by}: {iir_bytes} B, {iir_ops} flop), plain {iir_plain_ms:.5f} ms")
 
@@ -1316,10 +1407,15 @@ def main() -> int:
                        lambda u_, b_: polyphase_fold(u_, b_, p_taps, device=dev),
                        (u64, bank64), u64.numel() * 8 + bank64.numel() * 4
                        + v64.numel() * 8, 4 * p_taps * v64.numel(), FP32_OPS_PER_S)
-    iir_row = timed("(1024, 2400)", "iir kernel",
-                    lambda x0, y0, x: iir.first_order_apply((x0, y0), *deemph, x,
-                                                            device=dev),
-                    (*iir_st, iir_x), iir_bytes, iir_ops, FP32_OPS_PER_S)
+    fold64_row["library_ms"] = fold64_lib_ms
+    # the IIR at every path's shape, with that path's coefficients
+    iir_rows = {}
+    for label, (st, x, co) in iir_in.items():
+        iir_rows[label] = dict(shape=list(x.shape), a1=co[2], **timed(
+            label, "iir kernel",
+            lambda x0, y0, x, co=co: iir.first_order_apply((x0, y0), *co, x, device=dev),
+            (*st, x), *iir_bytes_ops(x), FP32_OPS_PER_S))
+    iir_row = iir_rows["nfm"]
 
     # the squelch at every path's shape, warm and cold; bound by bytes (x
     # in, y out); no chain to speak of (a few windows a row)
@@ -1355,34 +1451,62 @@ def main() -> int:
         lambda: squelch.squelch_apply_plain(st, level, x, window), 10, torch)
     log(f"[time] {smi}: squelch plain nfm {squelch_plain_ms:.5f} ms")
 
-    # the row encoder: its chain per nibble is the slope between one row of
-    # SEQ_SHORT_ROW and one of SEQ_ROW samples (a runtime length: one
-    # build); its operations bound counts the SASS instructions of its main
-    # loop a nibble at the int32 issue rate
+    # the row encoder.  Its serial nibble step, the one the sweep runs where
+    # no candidate holds the truth: a build with one segment walks a row
+    # with one lane, checked against the plain version, and the slope
+    # between rows of SEQ_SHORT_ROW and SEQ_ROW samples is its time a
+    # nibble (a runtime length: one build).  The operations bound counts the
+    # SASS instructions a nibble of csrc/adpcm.cu's main loop (the same
+    # nibble step) at the int32 issue rate
+    def seq_serial_launch(st, x):
+        rows_, ns = x.shape
+        out = torch.empty(rows_, ns // 2, dtype=torch.uint8, device=dev)
+        stride = torch.empty(rows_, ns // 200, dtype=torch.int32, device=dev)
+        po, io = (torch.empty(rows_, dtype=torch.int32, device=dev) for _ in range(2))
+        seq_serial.launch(x.data_ptr(), st[0].data_ptr(), st[1].data_ptr(),
+                          out.data_ptr(), stride.data_ptr(), po.data_ptr(),
+                          io.data_ptr(), rows_, ns, 0, None, kernels.stream_handle(dev))
+        return (po, io), (out, stride)
+
+    st, x = seq_in["audio"]
+    ks, (kb, kst) = seq_serial_launch(st, x)
+    ps, (pb, pst) = seq_plain["audio"]
+    torch.cuda.synchronize()
+    check(torch.equal(kb, pb) and torch.equal(kst, pst)
+          and all(torch.equal(a, b) for a, b in zip(ks, ps)),
+          "the one-segment build of adpcm_seq.cu differs from the plain version")
     seq_one = {}
     for ns in (SEQ_SHORT_ROW, SEQ_ROW):
         st1 = random_seq_state(1)
         x1 = int16_audio(torch, gen, dev, 1, ns)
-        seq_one[ns] = time_cuda(lambda: adpcm.adpcm_encode_seq(st1, x1),
-                                STEP_ITERS, torch)
+        seq_one[ns] = time_cuda(lambda: seq_serial_launch(st1, x1), STEP_ITERS, torch)
     seq_step_ms = (seq_one[SEQ_ROW] - seq_one[SEQ_SHORT_ROW]) / (SEQ_ROW - SEQ_SHORT_ROW)
-    seq_loop = sass_loop_instructions(kernels.ADPCM_SEQ.library_path())
-    seq_nibble_instrs = seq_loop / ADPCM_LOOP_NIBBLES
-    log(f"[time] {smi}: adpcm_encode_seq one row: {SEQ_SHORT_ROW} nibbles "
+    seq_nibble_instrs = (sass_loop_instructions(kernels.ADPCM.library_path())
+                         / ADPCM_LOOP_NIBBLES)
+    log(f"[time] {smi}: adpcm_encode_seq serial step (one-segment build, bytes "
+        f"identical to the plain version), one row: {SEQ_SHORT_ROW} nibbles "
         f"{seq_one[SEQ_SHORT_ROW]:.5f} ms, {SEQ_ROW} nibbles {seq_one[SEQ_ROW]:.5f} "
         f"ms: {seq_step_ms * 1e6:.3f} ns = {seq_step_ms * clock_mhz * 1e3:.1f} "
-        f"cycles a nibble at {clock_mhz:.0f} MHz; main loop {seq_loop} SASS "
-        f"instructions, {seq_nibble_instrs:.2f} a nibble")
+        f"cycles a nibble at {clock_mhz:.0f} MHz, {SEQ_ROW} x {seq_step_ms * 1e3:.5f} "
+        f"us = {SEQ_ROW * seq_step_ms:.5f} ms serial; {seq_nibble_instrs:.2f} SASS "
+        f"instructions a nibble")
     seq_rows = {}
-    for label in ("waterfall", "16 rows"):
+    for label, forced in (("cfg2 row", 0), ("wf row", 0), ("audio", 0), ("16 rows", 0),
+                          ("wf row", 1), ("wf row", 2)):
         st, x = seq_in[label]
         rows_, ns = x.shape
-        seq_rows[label] = dict(shape=list(x.shape), **timed(
-            label, "adpcm_encode_seq kernel",
-            lambda p0, i0, x: adpcm.adpcm_encode_seq((p0, i0), x), (*st, x),
-            seq_bytes(rows_, ns), round(seq_nibble_instrs * x.numel()), int32_per_s,
-            seq_step_ms * ns))
-    st, x = seq_in["waterfall"]
+        key = f"{label}, forced {forced}" if forced else label
+        seq_rows[key] = dict(shape=list(x.shape), forced=forced,
+                             **seq_diag[(label, forced)], **timed(
+            key, "adpcm_encode_seq kernel",
+            lambda p0, i0, x, forced=forced: adpcm.encode_seq_kernel((p0, i0), x, forced),
+            (*st, x), seq_bytes(rows_, ns), round(seq_nibble_instrs * x.numel()),
+            int32_per_s, seq_step_ms * ns))
+    log(f"[time] {smi}: adpcm_encode_seq SM cycles (most in a row, the check's "
+        f"launch): total, set-up, first pass, sweep, output: " + "; ".join(
+            f"{k} {v['cycles_total_setup_pass1_sweep_output']}" for k, v in seq_rows.items()))
+    seq_main = seq_rows["cfg2 row"]
+    st, x = seq_in["cfg2 row"]
     seq_plain_ms = time_cuda(lambda: adpcm.adpcm_encode_seq_plain(st, x), 2, torch)
     log(f"[time] {smi}: adpcm_encode_seq plain (1, {SEQ_ROW}) {seq_plain_ms:.5f} ms")
 
@@ -1499,7 +1623,7 @@ def main() -> int:
          "launches": total("iir.cu"), "launches_by_path": by_path("iir.cu"),
          "max_abs_err": iir_err, "ms": iir_ms, "cold_ms": iir_row["cold_ms"],
          "plain_ms": iir_plain_ms, "bound_ms": iir_bound, "bound_by": iir_by,
-         "library_ms": None},
+         "library_ms": None, "by_shape": iir_rows},
         {"name": "agc_chunked", "route": "cuda",
          "source": "openwebrx_tpu_torch/csrc/agc.cu",
          "replaces": "openwebrx_tpu/ops/agc.py:58",
@@ -1522,18 +1646,17 @@ def main() -> int:
          "source": "openwebrx_tpu_torch/csrc/adpcm_seq.cu",
          "replaces": "openwebrx_tpu/ops/adpcm.py:98",
          "launches": total("adpcm_seq.cu"), "launches_by_path": by_path("adpcm_seq.cu"),
-         "max_abs_err": float(seq_err), "ms": seq_rows["waterfall"]["ms"],
-         "cold_ms": seq_rows["waterfall"]["cold_ms"], "plain_ms": seq_plain_ms,
-         "bound_ms": seq_rows["waterfall"]["bound_ms"],
-         "bound_by": seq_rows["waterfall"]["bound_by"],
-         "chain_bound_ms": seq_rows["waterfall"]["chain_bound_ms"],
+         "max_abs_err": float(seq_err), "ms": seq_main["ms"],
+         "cold_ms": seq_main["cold_ms"], "plain_ms": seq_plain_ms,
+         "bound_ms": seq_main["bound_ms"], "bound_by": seq_main["bound_by"],
+         "chain_bound_ms": seq_main["chain_bound_ms"],
          "cycles_per_nibble": seq_step_ms * clock_mhz * 1e3, "library_ms": None,
          "by_shape": seq_rows},
     ]}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+        "platform": "gpu", "kind": device_kind, "count": torch.cuda.device_count()}}),
         flush=True)
     return 0
 

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Device times of the port's AGC and ADPCM functions in two checkouts, on
-one card.
+"""Device times of the port's recurrence kernels in two checkouts, on one
+card.
 
-Runs ``agc.agc_apply`` and ``adpcm.adpcm_encode`` of this checkout and of
-another (``--other``, e.g. a parent commit unpacked with ``git archive``
-into the git-ignored ``build/``) at the shapes the full-width paths give
-them (``chip_smoke.AGC_PATH_CASES`` and ``ADPCM_PATH_SHAPES``, on
-``chip_smoke``'s seeded inputs), in alternating processes: other, this, this, other (``--rounds``
-times).  Each process builds its checkout's kernels and times every
-function warm (back-to-back launches on the same inputs) and cold (each
-launch on its own copy of the inputs, with the L2 cache flushed first),
-with ``chip_smoke.time_cuda`` of this checkout.  Both sides compute the
-whole function: for a checkout whose ``adpcm_encode`` is several launches,
-the time covers all of them.  ``encode_strides`` (the recurrence alone on
-explicit start states) is timed too.  Every run is printed and written to
-``--out``.
+Runs ``agc.agc_apply``, ``adpcm.adpcm_encode``, ``iir.first_order_apply``
+and ``adpcm.adpcm_encode_seq`` of this checkout and of another (``--other``,
+e.g. a parent commit unpacked with ``git archive`` into the git-ignored
+``build/``) at the shapes the full-width paths give them
+(``chip_smoke.AGC_PATH_CASES``, ``ADPCM_PATH_SHAPES`` and
+``IIR_PATH_CASES``, on ``chip_smoke``'s seeded inputs; the row encoder on
+the real config #2 and 49.152 MS/s waterfall rows, on audio and on 16 rows),
+in alternating processes: other, this, this, other (``--rounds`` times).
+Each process builds its checkout's kernels and times every function warm
+(back-to-back launches on the same inputs) and cold (each launch on its own
+copy of the inputs, with the L2 cache flushed first), with
+``chip_smoke.time_cuda`` of this checkout.  Both sides compute the whole
+function: for a checkout whose ``adpcm_encode`` is several launches, the
+time covers all of them.  ``encode_strides`` (the recurrence alone on
+explicit start states) is timed too, and the row encoder's adversarial test
+inputs (``encode_seq_kernel`` with ``forced`` 1 and 2) on the 49.152 MS/s
+row where the checkout has them; a checkout without them runs its
+``adpcm_encode_seq`` on that row, whose time does not depend on the data.
+Every run is printed and written to ``--out``.
 
 Usage (from the root of a checkout, on a machine with a card)::
 
@@ -46,7 +52,7 @@ def child(root: str) -> int:
         print("compare_kernels: no CUDA device available", file=sys.stderr)
         return 1
     from openwebrx_tpu_torch import kernels
-    from openwebrx_tpu_torch.ops import adpcm, agc
+    from openwebrx_tpu_torch.ops import adpcm, agc, iir
 
     for k in kernels.ALL:
         k.build()
@@ -82,6 +88,35 @@ def child(root: str) -> int:
                          dtype=torch.int32)
     out["encode_strides"] = both(
         lambda s, p, i: adpcm.encode_strides(s, p, i, device=dev), (lanes, prev, idxs))
+    out["iir"] = {}
+    for label, shape in smoke.IIR_PATH_CASES.items():
+        st, x = smoke.iir_input(torch, gen, dev, shape)
+        co = (iir.dc_block_coeffs(12000.0) if label == "am"
+              else iir.deemphasis_coeffs(48000.0, 150e-6))
+        out["iir"][label] = dict(shape=list(shape), **both(
+            lambda x0, y0, x, co=co: iir.first_order_apply((x0, y0), *co, x, device=dev),
+            (*st, x)))
+    seq = {label: (adpcm.adpcm_init((1,), device=dev),
+                   smoke.waterfall_row(torch, gen, dev, label))
+           for label in smoke.SEQ_REAL_ROWS}
+    for label, rows in (("audio", 1), ("16 rows", 16)):
+        seq[label] = ((torch.randint(-32768, 32767, (rows,), generator=gen, device=dev,
+                                     dtype=torch.int32),
+                       torch.randint(0, 89, (rows,), generator=gen, device=dev,
+                                     dtype=torch.int32)),
+                      smoke.int16_audio(torch, gen, dev, rows, smoke.SEQ_ROW))
+    out["adpcm_encode_seq"] = {}
+    for label, (st, x) in seq.items():
+        out["adpcm_encode_seq"][label] = dict(shape=list(x.shape), **both(
+            lambda p0, i0, x: adpcm.adpcm_encode_seq((p0, i0), x), (*st, x)))
+    st, x = seq["wf row"]
+    for forced in (1, 2):
+        if hasattr(adpcm, "encode_seq_kernel"):
+            fn = lambda p0, i0, x, f=forced: adpcm.encode_seq_kernel((p0, i0), x, f)
+        else:
+            fn = lambda p0, i0, x: adpcm.adpcm_encode_seq((p0, i0), x)
+        out["adpcm_encode_seq"][f"wf row, forced {forced}"] = dict(
+            shape=list(x.shape), **both(fn, (*st, x)))
     print(json.dumps(out))
     return 0
 
@@ -116,7 +151,8 @@ def main() -> int:
             rec["side"] = "this" if root == here else "other"
             runs.append(rec)
             print(f"[compare] run {len(runs)} {rec['side']}: " + json.dumps(
-                {k: rec[k] for k in ("agc", "adpcm_encode", "encode_strides")}),
+                {k: rec[k] for k in ("agc", "adpcm_encode", "encode_strides", "iir",
+                                     "adpcm_encode_seq")}),
                 flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps({"card": smi, "runs": runs}, indent=1))

@@ -131,9 +131,9 @@ AGC = CudaKernel("agc.cu", "agc_launch",
 SQUELCH = CudaKernel("squelch.cu", "squelch_launch",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 # adpcm_seq_launch(samples, pred0, idx0, out, stride, pred, idx, rows, ns,
-#                  stream)
+#                  forced, diag, stream)
 ADPCM_SEQ = CudaKernel("adpcm_seq.cu", "adpcm_seq_launch",
-                       [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P])
+                       [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P])
 
 ALL = (FOLD, ADPCM, IIR, AGC, SQUELCH, ADPCM_SEQ)
 

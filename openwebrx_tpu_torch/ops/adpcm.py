@@ -52,6 +52,7 @@ IMA_STEP_TABLE = np.array([
 STATE_STRIDE = 100
 SYNC_INTERVAL = STATE_STRIDE
 COMPRESS_FFT_PAD_N = 10  # the client skips this many samples of a row
+SEQ_DIAG_WORDS = 8       # the row-encoder kernel's diag words a row
 
 
 def adpcm_init(batch_shape=(), device="cuda"):
@@ -263,18 +264,48 @@ def adpcm_encode_seq(state, samples: torch.Tensor):
                              f"{tuple(t.shape)} {t.dtype}")
     if dev.type == "cpu":
         return adpcm_encode_seq_plain(state, samples)
-    n = two_n // 2
+    return encode_seq_kernel(state, samples)
+
+
+def encode_seq_kernel(state, samples: torch.Tensor, forced: int = 0,
+                      diag: torch.Tensor | None = None):
+    """One launch of ``csrc/adpcm_seq.cu`` on CUDA tensors that
+    :func:`adpcm_encode_seq` has checked.  The kernel runs candidate
+    trajectories from guessed states in parallel and has one sweep follow
+    the true state through them; the output does not depend on the guesses.
+    ``forced`` is a test input that changes the work and not the output: 1
+    starts every guessed segment from (−32768, 88), 2 lets the sweep take no
+    guessed run (all but the first run encoded in series, the design's
+    worst case).
+    ``diag``, an (rows, SEQ_DIAG_WORDS) int32 tensor, receives per row the
+    run ends the sweep looked up, the nibbles it encoded itself, the nibbles
+    of the longest first-pass run and the SM cycles of the kernel and of its
+    set-up, first pass, sweep and output."""
+    pred0, idx0 = state
+    dev = samples.device
+    if forced not in (0, 1, 2):
+        raise ValueError(f"forced must be 0, 1 or 2, got {forced}")
+    if dev.type != "cuda":
+        raise ValueError(f"the row-encoder kernel runs on CUDA tensors, got {dev}")
+    lead = tuple(samples.shape[:-1])
+    n = samples.shape[-1] // 2
     bytes_ = torch.empty(lead + (n,), dtype=torch.uint8, device=dev)
     stride = torch.empty(lead + (n // STATE_STRIDE,), dtype=torch.int32, device=dev)
     new_state = (torch.empty(lead, dtype=torch.int32, device=dev),
                  torch.empty(lead, dtype=torch.int32, device=dev))
     rows = int(np.prod(lead, dtype=np.int64))
+    if diag is not None and (diag.dtype != torch.int32
+                             or diag.shape != (rows, SEQ_DIAG_WORDS)
+                             or not diag.is_contiguous() or diag.device != dev):
+        raise ValueError(f"diag must be a contiguous ({rows}, {SEQ_DIAG_WORDS}) "
+                         f"int32 tensor on {dev}")
     if rows:
         x = samples.contiguous()
         ADPCM_SEQ.launch(x.data_ptr(), pred0.contiguous().data_ptr(),
                          idx0.contiguous().data_ptr(), bytes_.data_ptr(),
                          stride.data_ptr(), new_state[0].data_ptr(),
-                         new_state[1].data_ptr(), rows, two_n,
+                         new_state[1].data_ptr(), rows, 2 * n, forced,
+                         None if diag is None else diag.data_ptr(),
                          stream_handle(dev))
     return new_state, (bytes_, stride)
 

@@ -4,9 +4,10 @@ Counterpart of ``openwebrx_tpu/ops/iir.py``, which evaluates the linear
 recurrence with ``jax.lax.associative_scan``.  PyTorch has no scan, so the
 plain version here is a log-depth doubling scan (about log2(B) vectorized
 steps, never a B-step loop), and on a CUDA tensor :func:`first_order_apply`
-runs the hand-written kernel ``csrc/iir.cu`` (one warp per row, a chunked
-two-pass scan).  The three evaluation orders round differently; the tests
-state the tolerance.
+runs the hand-written kernel ``csrc/iir.cu`` (rows staged whole in shared
+memory; a warp a short row, a CTA-wide scan for long ones, which are cut
+over a thread-block cluster when few).  The three evaluation orders round
+differently; the tests state the tolerance.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ import torch
 
 from openwebrx_tpu_torch import check_on, resolve_device
 from openwebrx_tpu_torch.kernels import IIR, stream_handle
+
+# the longest row one kernel launch takes (8 CTAs of 3840 samples)
+KERNEL_MAX_ROW = 8 * 3840
 
 
 def linear_recurrence(a, c: torch.Tensor, y_prev: torch.Tensor) -> torch.Tensor:
@@ -83,8 +87,17 @@ def first_order_apply(state, b0: float, b1: float, a1: float,
     if not all(np.ndim(v) == 0 for v in (b0, b1, a1)):
         raise ValueError("the first-order kernel takes scalar coefficients")
     rows = int(np.prod(lead, dtype=np.int64))
-    xc = x.contiguous()
     xp, yp = x_prev.contiguous(), y_prev.contiguous()
+    if n > KERNEL_MAX_ROW:
+        # the kernel cuts a row over at most 8 CTAs: longer rows go in
+        # column blocks, the state carried from one to the next
+        ys = []
+        for a in range(0, n, KERNEL_MAX_ROW):
+            (xp, yp), yb = first_order_apply(
+                (xp, yp), b0, b1, a1, x[..., a:a + KERNEL_MAX_ROW].contiguous(), dev)
+            ys.append(yb)
+        return (xp, yp), torch.cat(ys, dim=-1)
+    xc = x.contiguous()
     y = torch.empty_like(xc)
     x_last = torch.empty(lead, dtype=torch.float32, device=dev)
     y_last = torch.empty(lead, dtype=torch.float32, device=dev)

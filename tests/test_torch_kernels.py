@@ -320,6 +320,29 @@ class TestIir:
         np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
         assert abs(float(ty_last[0]) - float(jy_last[0])) <= 1e-5 * scale
 
+    @pytest.mark.parametrize("shape,coeffs", [
+        ((4800,), jiir.deemphasis_coeffs(48000.0, 150e-6)),   # config #1's one row
+        ((4, 9600), jiir.deemphasis_coeffs(48000.0, 50e-6)),  # WFM-like rows
+        ((3, 4801), jiir.dc_block_coeffs(48000.0)),           # DC blocker, a1 ≈ 0.9987
+    ])
+    def test_plain_matches_jax_on_long_rows(self, shape, coeffs):
+        """Long rows, where the scan orders differ most: within 1e-5 of the
+        output scale (float32 sums in another order), x_last identical."""
+        b0, b1, a1 = coeffs
+        rng = np.random.default_rng(sum(shape))
+        x = rng.standard_normal(shape).astype(np.float32)
+        x0, y0 = (np.asarray(v) for v in
+                  rng.standard_normal((2,) + shape[:-1]).astype(np.float32))
+        (jx, jy_last), jy = jiir.first_order_apply(
+            (jnp.asarray(x0), jnp.asarray(y0)), b0, b1, a1, jnp.asarray(x))
+        (tx, ty_last), ty = tiir.first_order_apply_plain(
+            (torch.from_numpy(x0), torch.from_numpy(y0)), b0, b1, a1,
+            torch.from_numpy(x))
+        scale = np.abs(np.asarray(jy)).max()
+        assert np.abs(ty.numpy() - np.asarray(jy)).max() <= 1e-5 * scale
+        np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+        assert np.abs(ty_last.numpy() - np.asarray(jy_last)).max() <= 1e-5 * scale
+
     def test_rejects_bad_shapes(self):
         z = torch.zeros(3)
         with pytest.raises(ValueError):
@@ -341,15 +364,19 @@ class TestIir:
         (1024, 2400, jiir.deemphasis_coeffs(48000.0, 150e-6)),   # NFM bank
         (2048, 600, jiir.dc_block_coeffs(12000.0)),              # AM bank
         (3, 9601, jiir.deemphasis_coeffs(48000.0, 50e-6)),       # ragged tile
+        (128, 9600, jiir.deemphasis_coeffs(48000.0, 50e-6)),     # WFM bank
+        (None, 4800, jiir.deemphasis_coeffs(48000.0, 150e-6)),   # config #1: one row
+        (1, 40000, jiir.dc_block_coeffs(12000.0)),               # one row, column blocks
     ])
     def test_kernel_matches_plain_on_card(self, cuda_device, rows, n, coeffs):
-        # tolerance: a warp scan of 8-sample segments against the plain
-        # doubling scan, 1e-5 of the output scale
+        # tolerance: a block scan of runs against the plain doubling scan,
+        # 1e-5 of the output scale
         b0, b1, a1 = coeffs
-        rng = np.random.default_rng(rows + n)
-        x = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32)).to(cuda_device)
+        rng = np.random.default_rng((rows or 1) + n)
+        lead = () if rows is None else (rows,)
+        x = torch.from_numpy(rng.standard_normal(lead + (n,)).astype(np.float32)).to(cuda_device)
         st = tuple(torch.from_numpy(v).to(cuda_device) for v in
-                   rng.standard_normal((2, rows)).astype(np.float32))
+                   rng.standard_normal((2,) + lead).astype(np.float32))
         (kx, ky), y = tiir.first_order_apply(st, b0, b1, a1, x, device=cuda_device)
         (px, py), yp = tiir.first_order_apply_plain(st, b0, b1, a1, x)
         torch.cuda.synchronize()

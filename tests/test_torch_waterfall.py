@@ -64,7 +64,48 @@ def _square_rows(rows, n):
     return np.stack([out[i % 4] for i in range(rows)]).astype(np.int16)
 
 
+def _waterfall_row_samples(kind, bins=1024, seed=0):
+    """The row encoder's int16 input for one waterfall-like row: dB of the
+    averaged |FFT|² of noise plus two tones (29 frames as config #2's
+    waterfall, 600 as the 49.152 MS/s one), a clipped row, or full-scale
+    square waves; COMPRESS_FFT_PAD_N pad samples in front."""
+    rng = np.random.default_rng(seed)
+    if kind == "square":
+        return _square_rows(1, bins + 16)[0]
+    frames = {"wf29": 29, "wf600": 600, "clipped": 29}[kind]
+    t = np.arange(bins)
+    acc = np.zeros(bins)
+    for _ in range(frames):
+        z = rng.standard_normal(bins) + 1j * rng.standard_normal(bins)
+        z += 30 * np.exp(2j * np.pi * 0.1 * t) + 3 * np.exp(2j * np.pi * 0.37 * t)
+        acc += np.abs(np.fft.fftshift(np.fft.fft(z * np.hanning(bins)))) ** 2
+    db = 10 * np.log10(acc / frames / bins) - 60
+    if kind == "clipped":
+        db[::7] = 400.0                     # +32767 after ×100
+        db[3::11] = -400.0                  # −32768
+    rows = torch.from_numpy(db.astype(np.float32))[None]
+    return tadpcm.fft_row_samples(rows)[0].numpy()
+
+
 class TestAdpcmEncodeSeq:
+    @pytest.mark.parametrize("idx0", [0, 88])
+    @pytest.mark.parametrize("kind", ["wf29", "wf600", "clipped", "square"])
+    def test_plain_bit_exact_with_jax_on_waterfall_rows(self, kind, idx0):
+        """The rows the kernel is timed and checked on: waterfall-like dB
+        rows at 29 and 600 averages, clipped and square-wave rows, from a
+        start index at either end of the table."""
+        x = _waterfall_row_samples(kind, seed=idx0)[None]
+        pred = np.array([int(x[0, 0]) - 1000], np.int32)
+        idx = np.array([idx0], np.int32)
+        js, (jb, jst) = jadpcm.adpcm_encode_seq((jnp.asarray(pred), jnp.asarray(idx)),
+                                                jnp.asarray(x))
+        ts, (tb, tst) = tadpcm.adpcm_encode_seq_plain(
+            (torch.from_numpy(pred), torch.from_numpy(idx)), torch.from_numpy(x))
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+        np.testing.assert_array_equal(tst.numpy(), np.asarray(jst))
+        for a, b in zip(ts, js):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
     # 4112: a 4096-bin row with pad (2056 bytes, not a multiple of 100);
     # 400: exactly two strides; 2064: a 2048-bin row padded to 8 samples
     @pytest.mark.parametrize("n", [4112, 400, 2064])
@@ -112,6 +153,16 @@ class TestAdpcmEncodeSeq:
         with pytest.raises((RuntimeError, ValueError)):
             tadpcm.compress_fft_rows(np.zeros((1, 64), np.float32))
 
+    def test_kernel_entry_runs_only_on_the_card(self):
+        """encode_seq_kernel (the launch behind adpcm_encode_seq, with its
+        test inputs) takes CUDA tensors only and forced in {0, 1, 2}."""
+        st = tadpcm.adpcm_init((1,), device="cpu")
+        x = torch.zeros(1, 16, dtype=torch.int16)
+        with pytest.raises(ValueError):
+            tadpcm.encode_seq_kernel(st, x)
+        with pytest.raises(ValueError):
+            tadpcm.encode_seq_kernel(st, x, forced=3)
+
     @pytest.mark.cuda
     @pytest.mark.parametrize("rows,n", [(1, 4112), (16, 4112), (3, 2058), (40, 400)])
     def test_kernel_matches_plain_on_card(self, cuda_device, rows, n):
@@ -127,6 +178,31 @@ class TestAdpcmEncodeSeq:
         torch.cuda.synchronize()
         assert torch.equal(kb, pb) and torch.equal(kst, pst)
         assert all(torch.equal(a, b) for a, b in zip(ks, ps))
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("forced", [1, 2])
+    @pytest.mark.parametrize("rows,n", [(1, 4112), (16, 4112), (3, 2058), (2, 6)])
+    def test_kernel_forced_repairs_match_plain_on_card(self, cuda_device, rows, n, forced):
+        """The adversarial test inputs: every guess at (−32768, 88)
+        (forced 1), or no guessed run taken at all, so the sweep encodes the
+        row itself (forced 2); the output must not change."""
+        rng = np.random.default_rng(rows * n + forced)
+        x = np.stack([_waterfall_row_samples(("wf29", "wf600", "square")[i % 3],
+                                             bins=4096, seed=i)[:n]
+                      for i in range(rows)]) if n > 8 else \
+            rng.integers(-32768, 32767, (rows, n)).astype(np.int16)
+        st = tuple(torch.from_numpy(v).to(cuda_device) for v in (
+            rng.integers(-32768, 32767, rows).astype(np.int32),
+            rng.integers(0, 89, rows).astype(np.int32)))
+        xt = torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+        diag = torch.zeros(rows, tadpcm.SEQ_DIAG_WORDS, dtype=torch.int32,
+                           device=cuda_device)
+        ks, (kb, kst) = tadpcm.encode_seq_kernel(st, xt, forced=forced, diag=diag)
+        ps, (pb, pst) = tadpcm.adpcm_encode_seq_plain(st, xt)
+        torch.cuda.synchronize()
+        assert torch.equal(kb, pb) and torch.equal(kst, pst)
+        assert all(torch.equal(a, b) for a, b in zip(ks, ps))
+        assert int(diag[:, 2].max()) > 0             # the first pass ran
 
 
 class TestFftOps:
