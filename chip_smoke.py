@@ -12,8 +12,8 @@ Phases (any failure raises and the script exits non-zero):
    second build of ``adpcm.cu`` with shorter strides, which phase 6 times
    (one ``nvcc`` per build, all started together);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the full-width paths give it: the polyphase fold (M = 1024 and config
-   #2's M = 64) and the first-order IIR within stated tolerances; the ADPCM
+   the full-width paths give it: the polyphase fold (M = 1024, config #2's
+   M = 64 and configs #3 and #6's M = 256) and the first-order IIR within stated tolerances; the ADPCM
    encoder (the fused ``adpcm_encode`` at every path's shape over four
    blocks with the state carried, strides built on every boundary of its
    index estimate, and ``encode_strides``) with bytes, stride states and
@@ -30,7 +30,9 @@ Phases (any failure raises and the script exits non-zero):
    versions), on the same input, in every mode: usb, nfm, am, rawam, sam
    and wfm (gathered, at 384 kHz slices); the waterfall (``FftChain``,
    float and compressed rows); every secondary and digital-voice chain on
-   two channels; a ``Fanout`` against its branches run alone;
+   two channels; a ``Fanout`` against its branches run alone; the
+   runtime's ``SecondaryBank`` fed device chunks, its FFT rows encoded on
+   the card, against the same bank on the CPU;
 5. the paths at full width, each fed seeded device-resident IQ with every
    result fetched to host numpy, each with its kernels' launch counters set
    to 0 just before it and checked against the expected counts just after:
@@ -40,12 +42,19 @@ Phases (any failure raises and the script exits non-zero):
    (a compressed 4096-bin waterfall, a PFB listener and a full-rate edge
    dial on one 2.4 MS/s block), config #4 (a ``Fanout`` of 16 BPSK31 and 16
    USB channels delivered in 6-block batches, checked against the CPU) and
-   the USB bank beside a 4096-bin waterfall of its 49.152 MS/s input.  Each
-   checks its outputs' shapes and dtypes, decodes its tones (≥ 15 dB SNR;
-   the waterfall's in their bins) and logs ms/block, MS/s, its real-time
-   multiple and peak memory; the shapes the paths hand the AGC, the ADPCM
-   encoders and the squelch are recorded and must be the ones phase 3
-   checked;
+   the USB bank beside a 4096-bin waterfall of its 49.152 MS/s input; then,
+   through the port's ``DeviceRuntime`` fed uint8 wire blocks at 8.192 MS/s
+   from a looped seeded source, BASELINE config #3 (64 background USB dials
+   on one PFB bank, raw audio in 6-block batches, pipeline depth 2),
+   config #6 (256 interactive ADPCM listeners with four retunes a block and
+   an edge drag to the full-rate bank and back every 8th block, depth 3)
+   and the threaded loop (``start()``, config #6's listeners and a
+   compressed waterfall, ``stop()``), each failing on any ERROR record of
+   the runtime's logger.  Each path checks its outputs' shapes and dtypes,
+   decodes its tones (≥ 15 dB SNR; the waterfall's in their bins) and logs
+   ms/block, MS/s, its real-time multiple and peak memory; the shapes the
+   paths hand the AGC, the ADPCM encoders and the squelch are recorded and
+   must be the ones phase 3 checked;
 6. kernel device times (CUDA events, launches queued ahead of the device)
    beside their bounds, the plain versions and, for the fold, one PyTorch
    call computing the same function; the fold and the IIR warm and cold;
@@ -66,6 +75,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import logging
 import os
 import re
 import subprocess
@@ -126,15 +136,19 @@ SEQ_SHORT_ROW = 2064
 AGC_PATH_CASES = {"usb": ("SLOW", (M, 600), 50), "nfm": ("FAST", (M, 2400), 50),
                   "am": ("SLOW", (2 * M, 600), 50), "cfg1": ("FAST", (4800,), 50),
                   "cfg2": ("SLOW", (64, 600), 50), "cfg2 edge": ("SLOW", (16, 600), 50),
-                  "cfg4": ("SLOW", (16, 1536), 48)}
+                  "cfg4": ("SLOW", (16, 1536), 48), "cfg3": ("SLOW", (64, 2400), 50),
+                  "cfg6": ("SLOW", (256, 2400), 50), "cfg6 edge": ("SLOW", (16, 2400), 50)}
 ADPCM_PATH_SHAPES = {"usb": (M, 600), "nfm": (M, 600), "am": (2 * M, 600),
                      "wfm": (128, 9600), "cfg1": (1200,), "cfg2": (64, 600),
-                     "cfg2 edge": (16, 600)}
+                     "cfg2 edge": (16, 600), "cfg6": (256, 2400), "cfg6 edge": (16, 2400)}
 SQUELCH_PATH_CASES = {"usb": ((M, 600), 600), "nfm": ((M, 2400), 2400),
                       "am": ((2 * M, 600), 600), "wfm": ((128, 50000), 12500),
                       "cfg1": ((4800,), 2400), "cfg2": ((64, 600), 600),
-                      "cfg2 edge": ((16, 600), 600), "cfg4": ((16, 1536), 768)}
-ADPCM_SEQ_PATH_SHAPES = {(1, SEQ_ROW)}     # one waterfall row a block
+                      "cfg2 edge": ((16, 600), 600), "cfg4": ((16, 1536), 768),
+                      "cfg3": ((64, 2400), 800), "cfg6": ((256, 2400), 800),
+                      "cfg6 edge": ((16, 2400), 800)}
+# one waterfall row a block; two at 8.192 MS/s (the threaded run)
+ADPCM_SEQ_PATH_SHAPES = {(1, SEQ_ROW), (2, SEQ_ROW)}
 # the first-order IIR (x) on the paths that run one: the NFM and WFM
 # de-emphasis, the AM DC blocker, config #1's de-emphasis
 IIR_PATH_CASES = {"nfm": (M, 2400), "am": (2 * M, 600), "wfm": (128, 9600),
@@ -144,7 +158,18 @@ IIR_PATH_CASES = {"nfm": (M, 2400), "am": (2 * M, 600), "wfm": (128, 9600),
 # frames a second, carriers)
 SEQ_REAL_ROWS = {"cfg2 row": (2.4e6, 120000, 20.0, (-262000.0, 618000.0)),
                  "wf row": (49.152e6, 2457600, 9.0,
-                            tuple(float((i - 512) * 48000) for i in (100, 517, 900)))}
+                            tuple(float((i - 512) * 48000) for i in (100, 517, 900))),
+                 "8.192 rows": (8.192e6, 1638400, 9.0, (-1758500.0, 2000500.0))}
+# BASELINE configs #3 and #6 through the port's DeviceRuntime: 8.192 MS/s
+# of uint8 wire IQ, 0.2 s device blocks, 256 PFB channels of 32 kHz
+RT_FS = 8.192e6
+RT_LOOP_BLOCKS = 2          # the source's loop: 0.4 s, every tone continuous
+RT_NOISE, RT_TONE_AMP = 0.03, 0.05
+CFG3_DIALS, CFG3_WARM, CFG3_TIMED = 64, 13, 24   # warm: two 6-block deliveries + 1
+CFG6_LISTENERS, CFG6_WARM, CFG6_TIMED = 256, 6, 24
+CFG6_TONES = (200, 201, 202, 203)     # listeners the churn never moves
+RT_DEADLINE_S = 120.0       # the threaded run waits at most this long
+RT_THREADED_ROWS, RT_THREADED_FRAMES = 20, 10   # ... for this many rows and frames
 
 
 class SmokeFailure(RuntimeError):
@@ -218,9 +243,9 @@ def iir_input(torch, gen, dev, shape):
 
 
 def waterfall_row(torch, gen, dev, label):
-    """The row encoder's input for one real waterfall row, (1, SEQ_ROW)
-    int16: the float dB row that ``FftChain`` makes on the card from the
-    second of two seeded blocks of SEQ_REAL_ROWS[label], through
+    """The row encoder's input for one block's real waterfall rows, (rows,
+    SEQ_ROW) int16: the float dB rows that ``FftChain`` makes on the card
+    from the second of two seeded blocks of SEQ_REAL_ROWS[label], through
     ``fft_row_samples``."""
     from openwebrx_tpu_torch.models.receiver import FftChain
     from openwebrx_tpu_torch.ops import adpcm
@@ -469,6 +494,416 @@ def check_launches(label, launches, expected):
               f"{label}: {name} launched {launches[name]} times, expected {want}")
 
 
+class LoopSource:
+    """A duck-typed source for the port's DeviceRuntime (``id``,
+    ``get_sample_rate``, ``block_size``, ``start``, ``read_block``): seeded
+    complex noise plus a USB tone TONE_AUDIO_HZ above each dial, made once
+    on the host when the runtime has set ``block_size``, as uint8 wire
+    pairs (bias 127.4, ±128 full scale), RT_LOOP_BLOCKS blocks looped;
+    ``read_block`` hands out the next block at once."""
+
+    def __init__(self, label, fs, dials, seed):
+        self.id, self.fs, self.dials, self.seed = label, fs, list(dials), seed
+        self.block_size = 0
+        self._wire, self._pos = None, 0
+
+    def get_sample_rate(self):
+        return self.fs
+
+    def start(self):
+        if self._wire is not None:
+            return
+        n = RT_LOOP_BLOCKS * self.block_size
+        rng = np.random.default_rng(self.seed)
+        x = RT_NOISE * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+        t = np.arange(n, dtype=np.float64)
+        for dial in self.dials:
+            f = dial + TONE_AUDIO_HZ
+            check(abs(f * n / self.fs - round(f * n / self.fs)) < 1e-6,
+                  f"tone at {f} Hz is not continuous over the source's loop")
+            x += RT_TONE_AMP * np.exp(2j * np.pi * np.remainder(t * (f / self.fs), 1.0))
+        packed = np.stack([x.real, x.imag], axis=-1)
+        self._wire = np.clip(packed * 128.0 + 127.4, 0, 255).astype(np.uint8)
+
+    def read_block(self, timeout=1.0):
+        blk = self._wire[self._pos:self._pos + self.block_size]
+        self._pos = (self._pos + self.block_size) % len(self._wire)
+        return blk
+
+
+class ErrorRecords:
+    """A logging handler that keeps every ERROR record (the runtime's loop
+    logs a failed block and carries on)."""
+
+    def __init__(self):
+        import logging
+        self.records = []
+        self.handler = logging.Handler(logging.ERROR)
+        self.handler.emit = self.records.append
+
+    def check(self, label):
+        check(not self.records, f"{label}: the runtime logged errors: "
+              + "; ".join(r.getMessage() + (f" ({r.exc_info[1]!r})" if r.exc_info else "")
+                          for r in self.records))
+
+
+def decode_wire(frames, adpcm):
+    """SYNC-framed IMA ADPCM wire bytes (a listener's audio) → int16."""
+    data = b"".join(frames)
+    out, pos, state = [], 0, (0, 0)
+    while pos < len(data):
+        if data[pos:pos + 4] == b"SYNC":
+            idx, pred = np.frombuffer(data[pos + 4:pos + 8], "<i2")
+            state = (int(pred), int(idx))
+            pos += 8
+        chunk = data[pos:pos + adpcm.SYNC_INTERVAL]
+        pos += len(chunk)
+        pcm, state = adpcm.adpcm_decode_np(chunk, state)
+        out.append(pcm)
+    return np.concatenate(out) if out else np.zeros(0, np.int16)
+
+
+def pfb_dial(k, fs, m):
+    """Channel k's centre (negative above fs/2) + 500 Hz, as bench.py
+    places configs #3 and #6."""
+    freq = k * fs / m
+    return (freq - fs if freq >= fs / 2 else freq) + 500.0
+
+
+def launches_per_block(fold=0, adpcm_=0, iir_=0, agc_=0, squelch_=0, seq=0):
+    return {"fold.cu": fold, "adpcm.cu": adpcm_, "iir.cu": iir_, "agc.cu": agc_,
+            "squelch.cu": squelch_, "adpcm_seq.cu": seq}
+
+
+def secondary_bank_check(torch, dev):
+    """Phase 4: the runtime's SecondaryBank on the card (two BPSK31 slots
+    fed device chunks of another size than its block, the FFT rows of one
+    encoded on the card) against the same bank on the CPU fed the same
+    samples; the card takes the CPU bank's state after the first bank
+    block.  The host text decoder is a stub: only the device side is
+    compared (symbols, and the wire rows' count, length and peak bin)."""
+    import types
+    from openwebrx_tpu_torch.ops import adpcm
+    from openwebrx_tpu_torch.runtime import device as rtdev
+    from openwebrx_tpu_torch.runtime.chain import tree_map
+    stub = types.SimpleNamespace(
+        VaricodeDecoder=lambda: types.SimpleNamespace(decode=lambda bits: ""),
+        dbpsk_bits=lambda symbols: symbols)
+    fs, offsets = 48000.0, (1200.0, -2500.0)
+    banks, got = {}, {}
+    for where in ("cpu", dev):
+        ns = types.SimpleNamespace(in_rate=fs, device=where, host=stub)
+        banks[where] = rtdev.SecondaryBank(ns, "bpsk31", capacity=2)
+        got[where] = {"y": [], "rows": []}
+        for off in offsets:
+            h = rtdev.SecondaryHandle(ns, "bpsk31", off, banks[where])
+            h.fft_cb = got[where]["rows"].append if off > 0 else None
+
+            def deliver(y, payloads, h=h, out=got[where]):
+                if h.fft_cb is not None:
+                    out["y"].append(y)
+                rtdev.SecondaryHandle._deliver(h, y, payloads)
+            h._deliver = deliver
+    block = banks["cpu"].block
+    rng = np.random.default_rng(31)
+    n = np.arange(4 * block)
+    sym = np.repeat(np.cumprod(np.where(rng.integers(0, 2, len(n) // 1536 + 1), 1, -1)),
+                    1536)[: len(n)]
+    x = sum(0.4 * sym * np.exp(2j * np.pi * o / fs * n) for o in offsets)
+    x = (x + 0.02 * (rng.standard_normal(len(n)) + 1j * rng.standard_normal(len(n)))
+         ).astype(np.complex64)
+    xd = torch.from_numpy(x).to(dev)
+    for where in ("cpu", dev):
+        banks[where].feed(x[:block] if where == "cpu" else xd[:block])
+    banks[dev].program.state = tree_map(lambda t: t.to(dev), banks["cpu"].program.state)
+    step = block // 3 + 7
+    for a in range(block, len(x), step):
+        banks["cpu"].feed(x[a:a + step])
+        banks[dev].feed(xd[a:a + step])
+    yc, yd = got["cpu"]["y"], got[dev]["y"]
+    check(len(yd) == len(yc) == 4, f"SecondaryBank: {len(yd)} card and {len(yc)} CPU blocks")
+    err = max(float(np.abs(d - c).max() / np.abs(c).max()) for d, c in zip(yd[1:], yc[1:]))
+    rc, rd = got["cpu"]["rows"], got[dev]["rows"]
+    nb = adpcm.wire_bytes_per_row(2048)
+    peaks = [(int(np.argmax(decoded_row(a, nb, adpcm))), int(np.argmax(decoded_row(b, nb, adpcm))))
+             for a, b in zip(rd, rc)]
+    log(f"[check] SecondaryBank bpsk31 (2 slots, device chunks of {step}) on the card vs "
+        f"the CPU: symbols max diff {err:.2e} of max|y| from bank block 1 (tolerance "
+        f"{CHAIN_RTOL}); {len(rd)} FFT rows encoded on the card, {len(rc)} on the CPU, "
+        f"peak bins {peaks}")
+    check(err <= CHAIN_RTOL and len(rd) == len(rc) > 0
+          and all(len(r) == nb for r in rd + rc)
+          and all(abs(a - b) <= 1 for a, b in peaks),
+          "SecondaryBank on the card disagrees with the CPU")
+
+
+def runtime_paths(torch, dev, smi, paths, launches_by_path):
+    """BASELINE configs #3 and #6 and the threaded loop through the port's
+    DeviceRuntime (phase 5): adds each path's report to ``paths`` and its
+    kernel launches to ``launches_by_path``."""
+    from openwebrx_tpu_torch import kernels
+    from openwebrx_tpu_torch.ops import adpcm
+
+    # uint8 wire blocks at 8.192 MS/s (0.2 s blocks); the runtime's logger
+    # is watched for ERROR records
+    from collections import deque
+    from openwebrx_tpu_torch.runtime import device as rtdev
+    errors = ErrorRecords()
+    logging.getLogger(rtdev.__name__).addHandler(errors.handler)
+
+    def runtime_drive(label, rt, src, n_warm, n_timed, before_block=None):
+        """Warm-up blocks, then every count set to 0 and ``n_timed`` blocks
+        through the runtime's own pipeline (dispatch, complete the oldest
+        once ``pipeline_depth`` are in flight), ``before_block(i)`` ahead
+        of each.  The host clock splits the timed blocks into the churn,
+        dispatch (upload, parameters, launches), the wait for a block's
+        copies and delivery (numpy, framing, callbacks); → (wall s,
+        launches, peak MiB, host ms a block by part)."""
+        pending = deque()
+        src.start()
+        for _ in range(n_warm):
+            rt._pump(src.read_block(), pending)
+        while pending:
+            rt._complete_block(pending.popleft())
+        spent = {"churn": 0.0, "dispatch": 0.0, "wait": 0.0, "deliver": 0.0}
+        dispatch, complete = rt._dispatch_block, rt._complete_block
+
+        def timed_dispatch(block):
+            t0 = time.perf_counter()
+            out = dispatch(block)
+            spent["dispatch"] += time.perf_counter() - t0
+            return out
+
+        def timed_complete(pend):
+            t0 = time.perf_counter()
+            for p in [*pend["fft_pending"], *(q for ps in pend["bank_pending"].values()
+                                                for q in ps)][:1]:
+                if p.event is not None:      # one event for all of them
+                    p.event.synchronize()
+            t1 = time.perf_counter()
+            complete(pend)
+            spent["wait"] += t1 - t0
+            spent["deliver"] += time.perf_counter() - t1
+
+        rt._dispatch_block, rt._complete_block = timed_dispatch, timed_complete
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in kernels.ALL:
+            k.launches = 0
+        t_start = time.perf_counter()
+        for i in range(n_timed):
+            if before_block is not None:
+                t0 = time.perf_counter()
+                before_block(i)
+                spent["churn"] += time.perf_counter() - t0
+            rt._pump(src.read_block(), pending)
+        while pending:
+            rt._complete_block(pending.popleft())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        del rt._dispatch_block, rt._complete_block
+        launches = {k.source.name: k.launches for k in kernels.ALL}
+        parts = {k: v / n_timed * 1e3 for k, v in spent.items()}
+        log(f"[{label}] launches: {launches} ({n_timed} blocks, pipeline depth "
+            f"{rt.pipeline_depth}); per block: " + ", ".join(
+                f"{k} {v / n_timed:g}" for k, v in launches.items()))
+        log(f"[{label}] {smi}: host ms a block: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in parts.items()))
+        errors.check(label)
+        return wall, launches, torch.cuda.max_memory_allocated(dev) / 2 ** 20, parts
+
+    def service_snr(chunks):
+        pcm = np.frombuffer(b"".join(chunks), np.int16)
+        return tone_snr(pcm[len(pcm) // 2:].astype(np.float32) / 32767,
+                        TONE_AUDIO_HZ, 12000.0)
+
+    # config #3 (bench.py:347-402): 64 background USB dials on distinct
+    # PFB channels, raw audio delivered in 6-block batches, depth 2
+    m3 = 256
+    dials3 = [pfb_dial((i * (m3 // 72) + 2) % m3, RT_FS, m3) for i in range(CFG3_DIALS)]
+    tone3 = (0, 21, 42, 63)
+    src3 = LoopSource("cfg3", RT_FS, [dials3[i] for i in tone3], seed=3)
+    rt3 = rtdev.DeviceRuntime(src3, target_seconds=0.1, service_delivery_seconds=0.6,
+                              pipeline_depth=2, device=dev)
+    check(rt3._pfb_channels() == m3 and rt3.block == 1638400,
+          f"config #3 plan: {rt3._pfb_channels()} channels, block {rt3.block}")
+    audio3 = {i: [] for i in range(CFG3_DIALS)}
+    for i, dial in enumerate(dials3):
+        h = rt3.open_channel("usb", dial, service=True)
+        h.audio_cb = lambda wire, hd=False, i=i: audio3[i].append(wire)
+    bank3 = rt3.banks["pfb:ssb"]
+    check({h.bucket_key for h in rt3.handles} == {"pfb:ssb"} and bank3.n_active == 64
+          and bank3.delivery_stride == 6 and bank3.chunk_ratio == 1,
+          f"config #3: dials in {sorted({h.bucket_key for h in rt3.handles})}, "
+          f"stride {bank3.delivery_stride}")
+    wall, launches, peak, parts = runtime_drive("cfg3", rt3, src3, CFG3_WARM, CFG3_TIMED)
+    launches_by_path["cfg3"] = launches
+    check_launches("cfg3", launches, {k: v * CFG3_TIMED for k, v in launches_per_block(
+        fold=1, agc_=1, squelch_=1).items()})
+    check(all(audio3.values()), "cfg3: audio missing on some dials")
+    for i in tone3:
+        snr = service_snr(audio3[i])
+        log(f"[cfg3] dial {i} ({dials3[i]:.0f} Hz): USB tone SNR {snr:.1f} dB "
+            f"(minimum {TONE_SNR_MIN_DB})")
+        check(snr > TONE_SNR_MIN_DB, f"cfg3: dial {i} tone SNR {snr:.1f} dB")
+    quiet = service_snr(audio3[10])
+    log(f"[cfg3] all {CFG3_DIALS} dials in pfb:ssb, audio on all; a quiet dial's "
+        f"1 kHz SNR {quiet:.1f} dB")
+    check(quiet < TONE_SNR_MIN_DB, f"cfg3: a tone leaks into dial 10 ({quiet:.1f} dB)")
+    paths["cfg3"] = dict(report("cfg3", smi, wall, CFG3_TIMED, rt3.block, RT_FS, peak),
+                         host_ms=parts)
+    del rt3, src3, bank3
+
+    # config #6 (bench.py:498-583): 256 interactive listeners (ADPCM), four
+    # retunes a block, every 8th block one listener dragged across a
+    # channel edge (served full rate for a block) and back; depth 3
+    def cfg6_runtime(label, seed):
+        src = LoopSource(label, RT_FS, [], seed=seed)
+        rt = rtdev.DeviceRuntime(src, target_seconds=0.1, capacity=16, pfb_capacity=256,
+                                 pipeline_depth=3, device=dev)
+        m = rt._pfb_m_for("ssb")
+        dials = [pfb_dial((i * (m // 256) + i // 128) % m, RT_FS, m)
+                 for i in range(CFG6_LISTENERS)]
+        src.dials = [dials[i] for i in CFG6_TONES]
+        frames = {i: [] for i in range(CFG6_LISTENERS)}
+        handles = []
+        for i, dial in enumerate(dials):
+            h = rt.open_channel("usb", dial)
+            h.audio_cb = lambda wire, hd=False, i=i: frames[i].append(wire)
+            handles.append(h)
+        check(m == 256 and {h.bucket_key for h in handles} == {"pfbi:ssb"},
+              f"{label}: {m} channels, listeners in {sorted({h.bucket_key for h in handles})}")
+        return rt, src, handles, frames
+
+    rt6, src6, handles6, frames6 = cfg6_runtime("cfg6", seed=6)
+    centers = np.fft.fftfreq(256, 1 / RT_FS)
+    edge = RT_FS / 256 * 1.5 - 200.0           # straddles a channel edge
+
+    def fitting_dial(j):
+        return float(centers[(j * 7 + 3) % 256] + 600.0)
+
+    handles6[0].set_offset(edge)               # the full-rate bank, built once
+    check(handles6[0].bucket_key == "ssb", "cfg6: the edge dial is not served full rate")
+    handles6[0].set_offset(fitting_dial(0))
+    check(handles6[0].bucket_key == "pfbi:ssb", "cfg6: the edge dial did not come back")
+    churn = {"retunes": 0, "migrations": 0, "full_rate_blocks": 0, "dragged": None}
+
+    def cfg6_churn(i):
+        if churn["dragged"] is not None:       # back from the edge
+            h = churn["dragged"]
+            h.set_offset(fitting_dial(i))
+            check(h.bucket_key == "pfbi:ssb", f"cfg6: block {i}: the dragged dial "
+                  f"is in {h.bucket_key}, not back in pfbi:ssb")
+            churn["dragged"] = None
+        for j in range(4):
+            h = handles6[(i * 4 + j) % len(handles6)]
+            h.set_offset(fitting_dial(i * 4 + j))
+            churn["retunes"] += 1
+        if i % 8 == 4:
+            h = handles6[(i * 13) % len(handles6)]
+            h.set_offset(edge)
+            check(h.bucket_key == "ssb", f"cfg6: block {i}: the edge dial is in "
+                  f"{h.bucket_key}, not served full rate")
+            churn["dragged"] = h
+            churn["migrations"] += 1
+        churn["full_rate_blocks"] += int(rt6.banks["ssb"].n_active > 0)
+
+    check(not any((i * 4 + j) % CFG6_LISTENERS in CFG6_TONES or (i * 13) % CFG6_LISTENERS
+                  in CFG6_TONES for i in range(CFG6_TIMED) for j in range(4)),
+          "cfg6: the churn would move a tone listener")
+    wall, launches, peak, parts = runtime_drive("cfg6", rt6, src6, CFG6_WARM,
+                                                CFG6_TIMED, cfg6_churn)
+    launches_by_path["cfg6"] = launches
+    full = churn["full_rate_blocks"]
+    check(full == CFG6_TIMED // 8, f"cfg6: {full} blocks with a full-rate dial")
+    check_launches("cfg6", launches, {
+        "fold.cu": CFG6_TIMED, "adpcm.cu": CFG6_TIMED + full, "iir.cu": 0,
+        "agc.cu": CFG6_TIMED + full, "squelch.cu": CFG6_TIMED + full, "adpcm_seq.cu": 0})
+    heard = sum(1 for f in frames6.values() if f)
+    check(heard >= 250, f"cfg6: audio on {heard} of {CFG6_LISTENERS} listeners")
+    for i in CFG6_TONES:
+        pcm = decode_wire(frames6[i], adpcm)
+        snr = tone_snr(pcm[len(pcm) // 2:].astype(np.float32) / 32767, TONE_AUDIO_HZ,
+                       12000.0)
+        log(f"[cfg6] listener {i}: ADPCM wire decoded, {len(pcm)} samples, USB tone "
+            f"SNR {snr:.1f} dB (minimum {TONE_SNR_MIN_DB})")
+        check(snr > TONE_SNR_MIN_DB, f"cfg6: listener {i} tone SNR {snr:.1f} dB")
+    log(f"[cfg6] {heard} of {CFG6_LISTENERS} listeners heard; {churn['retunes']} "
+        f"retunes, {churn['migrations']} edge drags (pfbi:ssb -> ssb -> pfbi:ssb), "
+        f"{full} blocks with the full-rate bank")
+    paths["cfg6"] = dict(report("cfg6", smi, wall, CFG6_TIMED, rt6.block, RT_FS, peak),
+                         retunes=churn["retunes"], edge_drags=churn["migrations"],
+                         host_ms=parts)
+    del rt6, src6, handles6, frames6
+
+    # the threaded run: config #6's listeners and a waterfall subscriber
+    # through start() and the loop thread, until audio and compressed rows
+    # arrived, then stop()
+    rtt, srct, handlest, framest = cfg6_runtime("threaded", seed=7)
+    rows_t = []
+    rtt.subscribe_waterfall(rows_t.append)
+    nb_row = rtt.fft_chain.waterfall.wire_bytes_per_row
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.ALL:
+        k.launches = 0
+    t_start = time.perf_counter()
+    rtt.start()
+    t_loop = time.perf_counter()
+    deadline = t_loop + RT_DEADLINE_S
+    try:
+        while time.perf_counter() < deadline and not (
+                len(rows_t) >= RT_THREADED_ROWS
+                and all(len(framest[i]) >= RT_THREADED_FRAMES for i in CFG6_TONES)):
+            time.sleep(0.05)
+    finally:
+        rtt.stop()
+    wall = time.perf_counter() - t_loop
+    torch.cuda.synchronize()
+    check(rtt._thread is None and not rtt._running, "threaded: the loop did not stop")
+    launches = {k.source.name: k.launches for k in kernels.ALL}
+    blocks_t = rtt.gauges["blocks"]
+    built_first = (rtt.kernels_built_at is not None and rtt.first_block_at is not None
+                   and rtt.kernels_built_at <= rtt.first_block_at)
+    log(f"[threaded] launches: {launches} ({blocks_t} blocks); kernels.ALL built by "
+        f"start() before the first block: {built_first} (start took "
+        f"{(t_loop - t_start) * 1e3:.1f} ms); gauges {rtt.gauges}")
+    errors.check("threaded")
+    launches_by_path["threaded"] = launches
+    check(built_first, "threaded: kernels.ALL was not built before the first block")
+    check(blocks_t > 0 and len(rows_t) >= RT_THREADED_ROWS
+          and all(len(framest[i]) >= RT_THREADED_FRAMES for i in CFG6_TONES),
+          f"threaded: {blocks_t} blocks, {len(rows_t)} rows, audio frames "
+          f"{[len(framest[i]) for i in CFG6_TONES]} before the deadline")
+    check_launches("threaded", launches, {k: v * blocks_t for k, v in launches_per_block(
+        fold=1, adpcm_=1, agc_=1, squelch_=1, seq=1).items()})
+    check(all(len(r) == nb_row for r in rows_t) and len(rows_t) == 2 * blocks_t,
+          f"threaded: waterfall rows of {sorted({len(r) for r in rows_t})} bytes "
+          f"({len(rows_t)} for {blocks_t} blocks), expected {nb_row}")
+    row = decoded_row(rows_t[-1], nb_row, adpcm)
+    for f in srct.dials:
+        f_t = f + TONE_AUDIO_HZ
+        k = WF_SIZE // 2 + int(round(f_t / RT_FS * WF_SIZE))
+        peak_bin = k - 4 + int(np.argmax(row[k - 4:k + 5]))
+        rise = row[peak_bin] - np.median(row)
+        log(f"[threaded] waterfall: tone at {f_t:.0f} Hz peaks in bin {peak_bin} "
+            f"(expected {k} ± 1), {rise:.1f} dB above the median after decoding")
+        check(abs(peak_bin - k) <= 1 and rise > 3.0,
+              f"threaded: waterfall tone at {f_t} peaks in bin {peak_bin}, expected {k}")
+    for i in CFG6_TONES:
+        pcm = decode_wire(framest[i], adpcm)
+        snr = tone_snr(pcm[len(pcm) // 2:].astype(np.float32) / 32767, TONE_AUDIO_HZ,
+                       12000.0)
+        check(snr > TONE_SNR_MIN_DB, f"threaded: listener {i} tone SNR {snr:.1f} dB")
+    paths["threaded"] = dict(
+        report("threaded", smi, wall, blocks_t, rtt.block, RT_FS,
+               torch.cuda.max_memory_allocated(dev) / 2 ** 20),
+        gauges=dict(rtt.gauges), kernels_built_before_first_block=built_first)
+    logging.getLogger(rtdev.__name__).removeHandler(errors.handler)
+    del rtt, srct, handlest, framest
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -670,6 +1105,21 @@ def main() -> int:
     check(tuple(v64.shape) == (1875, 64) and err64 <= tol64,
           f"fold kernel disagrees at M=64: {err64} > {tol64}")
     fold_err = max(fold_err, err64)
+    # and at configs #3 and #6: M = 256 at 8.192 MS/s, 6400-sample channel block
+    proto256 = torch.as_tensor(channelizer.design_prototype(256, p_taps), device=dev)
+    bank256 = torch.flip(proto256.reshape(p_taps, 256), dims=(0, 1)).contiguous()
+    u256 = torch.complex(torch.randn(6400 + p_taps - 1, 256, generator=gen, device=dev),
+                         torch.randn(6400 + p_taps - 1, 256, generator=gen, device=dev))
+    v256 = polyphase_fold(u256, bank256, p_taps, device=dev)
+    v256_plain = polyphase_fold_plain(u256, bank256, p_taps)
+    torch.cuda.synchronize()
+    err256 = float((v256 - v256_plain).abs().max())
+    tol256 = FOLD_RTOL * float(v256_plain.abs().max())
+    log(f"[check] fold u{tuple(u256.shape)} (configs #3 and #6, M=256): "
+        f"max_abs_err {err256:.3e} (tolerance {tol256:.3e})")
+    check(tuple(v256.shape) == (6400, 256) and err256 <= tol256,
+          f"fold kernel disagrees at M=256: {err256} > {tol256}")
+    fold_err = max(fold_err, err256)
 
     # squelch at every path's shape (rows over 40 dB, thresholds near them,
     # random start states, a silent and a half-NaN row), on real input, on
@@ -760,13 +1210,16 @@ def main() -> int:
                 torch.randint(0, 89, (rows,), generator=gen, device=dev,
                               dtype=torch.int32))
 
-    seq_in = {label: (adpcm.adpcm_init((1,), device=dev),
-                      waterfall_row(torch, gen, dev, label)) for label in SEQ_REAL_ROWS}
+    seq_in = {}
+    for label in SEQ_REAL_ROWS:
+        x = waterfall_row(torch, gen, dev, label)
+        seq_in[label] = (adpcm.adpcm_init(tuple(x.shape[:-1]), device=dev), x)
     wf_rows_db = (torch.randn(1, WF_SIZE, generator=gen, device=dev) * 8 - 80)
     wf_rows_db[0, 1000:1004] = -10.0
     wf_samples = adpcm.fft_row_samples(wf_rows_db)
     check(all(tuple(x.shape) == (1, SEQ_ROW) for x in
-              (wf_samples, *(x for _, x in seq_in.values()))),
+              (wf_samples, seq_in["cfg2 row"][1], seq_in["wf row"][1]))
+          and tuple(seq_in["8.192 rows"][1].shape) == (2, SEQ_ROW),
           f"waterfall rows {wf_samples.shape}")
     seq_in["random dB row"] = (adpcm.adpcm_init((1,), device=dev), wf_samples)
     seq_in["audio"] = (random_seq_state(1), int16_audio(torch, gen, dev, 1, SEQ_ROW))
@@ -985,6 +1438,8 @@ def main() -> int:
         f"{fan_rows:.2e} dB")
     check(fan_audio <= 2 and fan_rows <= WF_DB_TOL, "Fanout differs from its branches")
 
+    secondary_bank_check(torch, dev)
+
     # -- 5. the paths at full width ------------------------------------------
     # record the shapes the paths hand the AGC, the ADPCM encoders and the
     # squelch (the stages call them through their modules)
@@ -1019,10 +1474,6 @@ def main() -> int:
     paths = {}
     launches_by_path = {}
     n_blocks = WARMUP_BLOCKS + TIMED_BLOCKS
-
-    def launches_per_block(fold=0, adpcm_=0, iir_=0, agc_=0, squelch_=0, seq=0):
-        return {"fold.cu": fold, "adpcm.cu": adpcm_, "iir.cu": iir_, "agc.cu": agc_,
-                "squelch.cu": squelch_, "adpcm_seq.cu": seq}
 
     bank_paths = [
         # label, mode, m, audio rate, blocks timed, expected launches/block
@@ -1304,6 +1755,8 @@ def main() -> int:
     del ubank, wf5_prog, blocks, results
     torch.cuda.empty_cache()
 
+    runtime_paths(torch, dev, smi, paths, launches_by_path)
+
     agc.agc_apply, adpcm.adpcm_encode = agc_apply, adpcm_encode
     squelch.squelch_apply, adpcm.adpcm_encode_seq = squelch_apply, adpcm_encode_seq
     iir.first_order_apply = first_order_apply
@@ -1463,9 +1916,9 @@ def main() -> int:
         out = torch.empty(rows_, ns // 2, dtype=torch.uint8, device=dev)
         stride = torch.empty(rows_, ns // 200, dtype=torch.int32, device=dev)
         po, io = (torch.empty(rows_, dtype=torch.int32, device=dev) for _ in range(2))
-        seq_serial.launch(x.data_ptr(), st[0].data_ptr(), st[1].data_ptr(),
+        seq_serial.launch(dev, x.data_ptr(), st[0].data_ptr(), st[1].data_ptr(),
                           out.data_ptr(), stride.data_ptr(), po.data_ptr(),
-                          io.data_ptr(), rows_, ns, 0, None, kernels.stream_handle(dev))
+                          io.data_ptr(), rows_, ns, 0, None)
         return (po, io), (out, stride)
 
     st, x = seq_in["audio"]
@@ -1550,9 +2003,9 @@ def main() -> int:
     short_out = torch.empty((lanes, SHORT_STRIDE), dtype=torch.uint8, device=dev)
 
     def launch_short():
-        adpcm_short.launch(short_in.data_ptr(), None, None, prev.data_ptr(),
+        adpcm_short.launch(dev, short_in.data_ptr(), None, None, prev.data_ptr(),
                            idxs.data_ptr(), short_out.data_ptr(), None, None,
-                           None, lanes, 1, kernels.stream_handle(dev))
+                           None, lanes, 1)
 
     launch_short()
     check(torch.equal(short_out, adpcm.encode_strides_plain(short_in, prev, idxs)),

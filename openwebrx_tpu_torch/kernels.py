@@ -8,8 +8,11 @@ an unchanged one is reused.  Nothing is compiled or loaded at import: the
 CPU tests import every module of the port on machines without ``nvcc``.
 
 Every C entry point takes raw device pointers, sizes and a ``cudaStream_t``
-(PyTorch's current stream) and returns ``cudaGetLastError()`` after its
-launch; :meth:`CudaKernel.launch` raises when that is not 0.
+and returns ``cudaGetLastError()`` after its launch.
+:meth:`CudaKernel.launch` takes the device the tensors lie on, makes it the
+current device for the call (a thread's current device is device 0 until
+it is set, and a launch on another device's stream fails), passes that
+device's current PyTorch stream, and raises when the return is not 0.
 """
 
 from __future__ import annotations
@@ -97,10 +100,14 @@ class CudaKernel:
                     self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Call the C entry point; raise on a launch error, count on
-        success."""
-        rc = self._load()(*args)
+    def launch(self, device, *args) -> None:
+        """Call the C entry point with ``args`` and the current stream of
+        ``device``, under ``device`` as the current device; raise on a
+        launch error, count on success."""
+        import torch
+        fn = self._load()
+        with torch.cuda.device(device):
+            rc = fn(*args, stream_handle(device))
         if rc != 0:
             msg = self._lib.owrx_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {rc} ({msg})")

@@ -1,10 +1,11 @@
 """Digital-voice symbol front ends: DMR / YSF / D-Star / NXDN / M17.
 
-Counterpart of ``Fsk4SliceStage``, ``DvSymbolChain`` and ``DV_FACTORY`` in
-``openwebrx_tpu/models/digital_voice.py``: everything up to the dibit
-stream is batched device DSP (discriminator, DC block, RRC matched filter,
-feedforward timing recovery, adaptive 4FSK slicer); the protocol frame
-decode and the vocoder stay outside, consuming one uint8 dibit per symbol.
+Counterpart of ``Fsk4SliceStage``, ``DvSymbolChain``, ``DV_FACTORY`` and
+``DV_DECODERS`` in ``openwebrx_tpu/models/digital_voice.py``: everything up
+to the dibit stream is batched device DSP (discriminator, DC block, RRC
+matched filter, feedforward timing recovery, adaptive 4FSK slicer); the
+protocol frame decode and the vocoder stay outside, consuming one uint8
+dibit per symbol.
 All modes run a 48 kHz complex IF: 4800 baud → 10 samples/symbol, NXDN's
 2400 baud → 20.
 """
@@ -81,4 +82,14 @@ DV_FACTORY = {
     "dstar": lambda in_rate: DvSymbolChain(in_rate, 4800.0, 0.5, 3250.0, name="dstar"),
     "nxdn": lambda in_rate: DvSymbolChain(in_rate, 2400.0, 0.2, 3250.0, name="nxdn"),
     "m17": lambda in_rate: DvSymbolChain(in_rate, 4800.0, 0.5, 4500.0, name="m17"),
+}
+
+# mode → frame decoder + vocoder command (digiham binaries); {meta_fd} is
+# substituted by the subprocess pipeline when a metadata callback is
+# attached
+DV_DECODERS = {
+    "dmr": ["dmr_decoder", "--fifo", "/dev/fd/{meta_fd}"],
+    "ysf": ["ysf_decoder", "--fifo", "/dev/fd/{meta_fd}"],
+    "dstar": ["dstar_decoder", "--fifo", "/dev/fd/{meta_fd}"],
+    "nxdn": ["nxdn_decoder", "--fifo", "/dev/fd/{meta_fd}"],
 }

@@ -1,7 +1,7 @@
 """Selector: per-channel tuner (shift → decimate → bandpass → squelch).
 
-Counterpart of ``plan_decimation`` and ``Selector`` in
-``openwebrx_tpu/models/selector.py``.  A rate pair that is not an integer
+Counterpart of ``plan_decimation``, ``Selector`` and ``SecondarySelector``
+in ``openwebrx_tpu/models/selector.py``.  A rate pair that is not an integer
 ratio gets a fractional resampling stage after the integer decimator.
 """
 
@@ -72,3 +72,18 @@ class Selector(Chain):
     def set_squelch_level(self, level_db):
         if self.squelch is not None:
             self.squelch.set_level(level_db)
+
+
+class SecondarySelector(Chain):
+    """Digimode sub-tuner inside the audio channel: shift + narrow
+    bandpass."""
+
+    def __init__(self, sample_rate: float, bandwidth: float,
+                 name: str = "secondary_selector"):
+        self.sample_rate = float(sample_rate)
+        self.shift = ShiftStage()
+        self.bandpass = BandpassStage(-bandwidth / 2, bandwidth / 2)
+        super().__init__([self.shift, self.bandpass], name=name)
+
+    def set_frequency_offset(self, offset_hz: float):
+        self.shift.set_rate(-offset_hz / self.sample_rate)

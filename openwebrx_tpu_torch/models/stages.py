@@ -208,6 +208,13 @@ class BandpassStage(OpStage):
         if hasattr(self, "in_spec"):  # pre-plan: plan() will compute it
             self._recompute()
 
+    def set_slot_bandpass(self, slot: int, low_cut_hz: float,
+                          high_cut_hz: float):
+        """One channel's passband in a per-channel bandpass."""
+        lo, hi = np.array(self._low, copy=True), np.array(self._high, copy=True)
+        lo[slot], hi[slot] = low_cut_hz, high_cut_hz
+        self.set_bandpass(lo, hi)
+
     def plan(self, in_spec, block):
         self.transition = 320.0 / in_spec.rate
         self.ntaps = firdes.bandpass_ntaps(self.transition)
@@ -268,8 +275,8 @@ class SquelchStage(OpStage):
         return squelch.squelch_init(batch_shape, device)
 
     def params(self, device):
-        return torch.as_tensor(np.asarray(self._level, np.float32),
-                               device=device)
+        # a copy: banks rewrite their level arrays in place
+        return torch.tensor(np.asarray(self._level, np.float32), device=device)
 
     def apply(self, state, params, x):
         state, y, power_db = squelch.squelch_apply(state, params, x, self.window)
@@ -591,8 +598,9 @@ class NoiseFilterStage(OpStage):
         return noisefilter.nr_init(batch_shape, self.hop, device)
 
     def params(self, device):
-        return torch.as_tensor(np.asarray(self._threshold, np.float32),
-                               device=device)
+        # a copy: banks rewrite their threshold arrays in place
+        return torch.tensor(np.asarray(self._threshold, np.float32),
+                            device=device)
 
     def apply(self, state, params, x):
         state, y = noisefilter.nr_apply(state, params, x, self.hop)

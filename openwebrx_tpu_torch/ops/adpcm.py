@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from openwebrx_tpu_torch import check_on, resolve_device
-from openwebrx_tpu_torch.kernels import ADPCM, ADPCM_SEQ, stream_handle
+from openwebrx_tpu_torch.kernels import ADPCM, ADPCM_SEQ
 from openwebrx_tpu_torch.ops import wrap32
 
 IMA_INDEX_TABLE = np.array([-1, -1, -1, -1, 2, 4, 6, 8, -1, -1, -1, -1, 2, 4, 6, 8], np.int32)
@@ -140,9 +140,8 @@ def encode_strides(samples: torch.Tensor, prev: torch.Tensor,
             and idxs.is_contiguous() and samples.data_ptr() % 16 == 0):
         raise ValueError("the ADPCM kernel needs contiguous inputs and "
                          "16-byte aligned samples")
-    ADPCM.launch(samples.data_ptr(), None, None, prev.data_ptr(),
-                 idxs.data_ptr(), out.data_ptr(), None, None, None, lanes, 1,
-                 stream_handle(dev))
+    ADPCM.launch(dev, samples.data_ptr(), None, None, prev.data_ptr(),
+                 idxs.data_ptr(), out.data_ptr(), None, None, None, lanes, 1)
     return out
 
 
@@ -217,9 +216,9 @@ def adpcm_encode(state, samples: torch.Tensor):
     pred0, idx0 = pred0.contiguous(), idx0.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("the ADPCM kernel needs 16-byte aligned samples")
-    ADPCM.launch(x.data_ptr(), pred0.data_ptr(), idx0.data_ptr(), None, None,
+    ADPCM.launch(dev, x.data_ptr(), pred0.data_ptr(), idx0.data_ptr(), None, None,
                  bytes_.data_ptr(), stride.data_ptr(), new_state[0].data_ptr(),
-                 new_state[1].data_ptr(), lanes, s, stream_handle(dev))
+                 new_state[1].data_ptr(), lanes, s)
     return new_state, (bytes_, stride)
 
 
@@ -301,12 +300,11 @@ def encode_seq_kernel(state, samples: torch.Tensor, forced: int = 0,
                          f"int32 tensor on {dev}")
     if rows:
         x = samples.contiguous()
-        ADPCM_SEQ.launch(x.data_ptr(), pred0.contiguous().data_ptr(),
+        ADPCM_SEQ.launch(dev, x.data_ptr(), pred0.contiguous().data_ptr(),
                          idx0.contiguous().data_ptr(), bytes_.data_ptr(),
                          stride.data_ptr(), new_state[0].data_ptr(),
                          new_state[1].data_ptr(), rows, 2 * n, forced,
-                         None if diag is None else diag.data_ptr(),
-                         stream_handle(dev))
+                         None if diag is None else diag.data_ptr())
     return new_state, (bytes_, stride)
 
 
@@ -340,11 +338,19 @@ def compress_fft_rows(rows_db, device="cuda"):
     if not torch.is_tensor(rows_db):
         rows_db = torch.from_numpy(np.asarray(rows_db, np.float32))
     rows = torch.atleast_2d(rows_db.to(dev))
-    s = fft_row_samples(rows)
-    _, (bytes_, _) = adpcm_encode_seq(adpcm_init(s.shape[:-1], device=dev), s)
-    raw = bytes_.cpu().numpy()
+    raw = encode_fft_rows(rows).cpu().numpy()
     nbytes = wire_bytes_per_row(rows.shape[-1])
     return [raw[i, :nbytes].tobytes() for i in range(raw.shape[0])]
+
+
+def encode_fft_rows(rows_db: torch.Tensor) -> torch.Tensor:
+    """compress_fft_rows without the fetch: rows (..., N) float32 dB on
+    their device → uint8 (..., padded bytes) there, whose first
+    ``wire_bytes_per_row(N)`` bytes a row are its wire payload."""
+    lead, n = tuple(rows_db.shape[:-1]), rows_db.shape[-1]
+    s = fft_row_samples(rows_db.reshape(-1, n))
+    _, (bytes_, _) = adpcm_encode_seq(adpcm_init(s.shape[:-1], device=s.device), s)
+    return bytes_.reshape(lead + (bytes_.shape[-1],))
 
 
 def adpcm_decode_np(data: bytes, state=(0, 0)):

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from openwebrx_tpu_torch import check_on, resolve_device
-from openwebrx_tpu_torch.kernels import AGC, stream_handle
+from openwebrx_tpu_torch.kernels import AGC
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,9 +114,9 @@ def agc_apply(state, profile: AgcProfile, x: torch.Tensor, chunk: int = CHUNK,
     gain = torch.empty(lead, dtype=torch.float32, device=dev)
     hang = torch.empty(lead, dtype=torch.int32, device=dev)
     if rows:
-        AGC.launch(xc.data_ptr(), gain0.contiguous().data_ptr(),
+        AGC.launch(dev, xc.data_ptr(), gain0.contiguous().data_ptr(),
                    hang0.contiguous().data_ptr(), y.data_ptr(),
                    gain.data_ptr(), hang.data_ptr(), rows, b, chunk,
                    profile.attack, profile.decay, profile.hang_chunks,
-                   profile.reference, profile.max_gain, stream_handle(dev))
+                   profile.reference, profile.max_gain)
     return (gain, hang), y

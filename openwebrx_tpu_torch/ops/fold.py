@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from openwebrx_tpu_torch import check_on, resolve_device
-from openwebrx_tpu_torch.kernels import FOLD, stream_handle
+from openwebrx_tpu_torch.kernels import FOLD
 
 MAX_TAPS = 25      # the reference kernel's limit (window pad 24 = P − 1)
 
@@ -58,6 +58,6 @@ def polyphase_fold(u: torch.Tensor, bank_t: torch.Tensor, p_taps: int,
         raise ValueError("polyphase_fold kernel needs contiguous u and bank_t")
     v = torch.empty((n_time - p_taps + 1, m), dtype=torch.complex64,
                     device=dev)
-    FOLD.launch(u.data_ptr(), bank_t.data_ptr(), v.data_ptr(), n_time, m,
-                p_taps, stream_handle(dev))
+    FOLD.launch(dev, u.data_ptr(), bank_t.data_ptr(), v.data_ptr(), n_time, m,
+                p_taps)
     return v

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from openwebrx_tpu_torch import check_on, resolve_device
-from openwebrx_tpu_torch.kernels import IIR, stream_handle
+from openwebrx_tpu_torch.kernels import IIR
 
 # the longest row one kernel launch takes (8 CTAs of 3840 samples)
 KERNEL_MAX_ROW = 8 * 3840
@@ -102,9 +102,9 @@ def first_order_apply(state, b0: float, b1: float, a1: float,
     x_last = torch.empty(lead, dtype=torch.float32, device=dev)
     y_last = torch.empty(lead, dtype=torch.float32, device=dev)
     if rows:
-        IIR.launch(xc.data_ptr(), xp.data_ptr(), yp.data_ptr(), y.data_ptr(),
+        IIR.launch(dev, xc.data_ptr(), xp.data_ptr(), yp.data_ptr(), y.data_ptr(),
                    x_last.data_ptr(), y_last.data_ptr(), rows, n,
-                   float(b0), float(b1), float(a1), stream_handle(dev))
+                   float(b0), float(b1), float(a1))
     return (x_last, y_last), y
 
 

@@ -7,7 +7,9 @@ subtraction and exact overlap-add.
 
 ``torch.quantile`` with linear interpolation equals ``jnp.percentile``'s
 default method; it refuses inputs above 2²⁴ elements.  The 1024-channel
-bank feeds it 1024 × 2 frames × 513 bins ≈ 1.05 M elements.
+bank feeds it 1024 × 2 frames × 513 bins ≈ 1.05 M elements; a larger
+spectrum goes through it in chunks of whole channels, which gives the
+same numbers (each frame's percentile is its own).
 """
 
 from __future__ import annotations
@@ -51,6 +53,26 @@ def nr_init(batch_shape=(), hop: int = DEFAULT_HOP, device="cuda"):
     )
 
 
+def _frame_floor(mag: torch.Tensor) -> torch.Tensor:
+    """(..., frames, bins) → (...): each frame's 25th percentile over its
+    bins, averaged over the frames.  Above QUANTILE_LIMIT elements the
+    channels go through ``torch.quantile`` in chunks within the limit."""
+    if mag.numel() <= QUANTILE_LIMIT:
+        return torch.quantile(mag, 0.25, dim=-1,
+                              interpolation="linear").mean(dim=-1)
+    per_channel = mag.shape[-2] * mag.shape[-1]
+    if per_channel > QUANTILE_LIMIT:
+        raise ValueError(f"one channel's NR spectrum has {per_channel} "
+                         f"elements; torch.quantile takes at most "
+                         f"{QUANTILE_LIMIT}")
+    flat = mag.reshape((-1,) + tuple(mag.shape[-2:]))
+    step = QUANTILE_LIMIT // per_channel
+    parts = [torch.quantile(flat[i:i + step], 0.25, dim=-1,
+                            interpolation="linear")
+             for i in range(0, flat.shape[0], step)]
+    return torch.cat(parts).mean(dim=-1).reshape(mag.shape[:-2])
+
+
 def nr_apply(state, threshold_db: torch.Tensor, x: torch.Tensor,
              hop: int = DEFAULT_HOP):
     """x (..., B) float32 audio with B % hop == 0 → same shape, denoised
@@ -64,14 +86,10 @@ def nr_apply(state, threshold_db: torch.Tensor, x: torch.Tensor,
     frames = xe.unfold(-1, frame, hop) * window            # (..., nframes, frame)
     spec = torch.fft.rfft(frames, n=nfft, dim=-1)          # (..., nframes, nfft/2+1)
     mag = spec.abs()
-    if mag.numel() > QUANTILE_LIMIT:
-        raise ValueError(f"NR spectrum has {mag.numel()} elements; "
-                         f"torch.quantile takes at most {QUANTILE_LIMIT}")
 
     # broadband noise floor: low percentile across bins, averaged over the
     # block's frames, EMA-smoothed across blocks
-    frame_floor = torch.quantile(mag, 0.25, dim=-1,
-                                 interpolation="linear").mean(dim=-1)
+    frame_floor = _frame_floor(mag)
     floor = torch.where(floor_ema < 0, frame_floor,
                         0.8 * floor_ema + 0.2 * frame_floor)
 

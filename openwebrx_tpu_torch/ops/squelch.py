@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from openwebrx_tpu_torch import check_on, resolve_device
-from openwebrx_tpu_torch.kernels import SQUELCH, stream_handle
+from openwebrx_tpu_torch.kernels import SQUELCH
 
 
 def squelch_init(batch_shape=(), device="cuda"):
@@ -84,10 +84,10 @@ def squelch_apply(state, level_db: torch.Tensor, x: torch.Tensor,
     open_ = torch.empty(lead, dtype=torch.bool, device=dev)
     hang = torch.empty(lead, dtype=torch.int32, device=dev)
     if rows:
-        SQUELCH.launch(xc.data_ptr(), level.data_ptr(),
+        SQUELCH.launch(dev, xc.data_ptr(), level.data_ptr(),
                        open0.contiguous().data_ptr(),
                        hang0.contiguous().data_ptr(), y.data_ptr(),
                        power_db.data_ptr(), open_.data_ptr(), hang.data_ptr(),
                        rows, b, window, 2 if x.is_complex() else 1,
-                       int(per_row), hang_windows, stream_handle(dev))
+                       int(per_row), hang_windows)
     return (open_, hang), y, power_db

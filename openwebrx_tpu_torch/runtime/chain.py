@@ -220,15 +220,24 @@ def _to_host_async(t: torch.Tensor) -> torch.Tensor:
     return host
 
 
+def start_fetches(pendings, device: torch.device) -> list[Pending]:
+    """On a card, start the copies of several device-side results into
+    pinned host memory behind ONE event, without waiting; elsewhere return
+    them as they are."""
+    if device.type != "cuda":
+        return list(pendings)
+    event = torch.cuda.Event()
+    out = [Pending(*tree_map(_to_host_async, (p.y, p.aux)), event)
+           for p in pendings]
+    event.record(torch.cuda.current_stream(device))
+    return out
+
+
 def start_fetch(y, aux, device: torch.device, to_host: bool = True) -> Pending:
-    """Wrap a step's outputs; on a card with ``to_host`` start their copies
-    into pinned host memory now, behind an event, without waiting."""
-    if to_host and device.type == "cuda":
-        y, aux = tree_map(_to_host_async, (y, aux))
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(device))
-        return Pending(y, aux, event)
-    return Pending(y, aux)
+    """Wrap a step's outputs; with ``to_host`` start their copies into
+    pinned host memory now (start_fetches)."""
+    pending = Pending(y, aux)
+    return start_fetches([pending], device)[0] if to_host else pending
 
 
 def finish_fetch(pending: Pending):
@@ -325,6 +334,26 @@ class Program:
             self._params_ver = v
         return self._params_cache
 
+    def pack_input(self, x):
+        """Host block → what one upload carries, validated: complex samples
+        as packed (block, 2) float32 (a zero-copy view); packed float32,
+        int16 or uint8 (block, 2) pairs as they are (they become float on
+        the device, ``as_input_block``); real samples as they are."""
+        if self._in_complex:
+            if (getattr(x, "ndim", 0) >= 2 and x.shape[-1] == 2
+                    and x.shape[-2] == self.block
+                    and getattr(x, "dtype", None) in (np.float32, np.int16,
+                                                      np.uint8)):
+                return x
+            if x.shape[-1] != self.block:
+                raise ValueError(f"Program expects blocks of {self.block} "
+                                 f"samples, got {x.shape[-1]}")
+            return host_pack_complex(np.asarray(x))
+        if x.shape[-1] != self.block:
+            raise ValueError(f"Program expects blocks of {self.block} "
+                             f"samples, got {x.shape[-1]}")
+        return x
+
     def dispatch(self, x, to_host: bool = True):
         """Enqueue one block → (Pending, None).  With ``to_host`` the
         results' copies into pinned host memory start at once; fetch()
@@ -350,13 +379,7 @@ class Program:
     def join_pending(self, pends):
         """Start the host copies of several dispatch_quiet results behind one
         event → (list of Pending, n) for fetch_many."""
-        joined = [p for p, _ in pends]
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            joined = [Pending(*tree_map(_to_host_async, (p.y, p.aux)), event)
-                      for p in joined]
-            event.record(torch.cuda.current_stream(self.device))
-        return joined, len(pends)
+        return start_fetches([p for p, _ in pends], self.device), len(pends)
 
     def fetch_many(self, joined, n: int):
         """Wait for a join_pending batch → list of n (y, aux), in order."""

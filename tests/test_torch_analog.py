@@ -251,6 +251,50 @@ class TestStages:
                 _close(ta[k].numpy(), ja[k], 3e-5, k)
 
 
+    def test_secondary_selector_matches_jax(self):
+        """SecondarySelector (shift + narrow bandpass) on two channels, two
+        blocks; the stage tests' tolerance."""
+        from openwebrx_tpu.models.selector import SecondarySelector as JaxSec
+        from openwebrx_tpu_torch.models.selector import SecondarySelector
+        rate, block = 12000.0, 1200
+        sj, stt = JaxSec(rate, 500.0), SecondarySelector(rate, 500.0)
+        for s in (sj, stt):
+            s.set_frequency_offset(np.array([1500.0, -900.0]))
+        sj.plan(JSpec(JFormat.COMPLEX_FLOAT, rate), block)
+        stt.plan(TSpec(TFormat.COMPLEX_FLOAT, rate), block)
+        assert stt.signature() == sj.signature() and stt.label == sj.label
+        js, ts = sj.init_state((2,)), stt.init_state((2,), torch.device(CPU))
+        pj, pt = sj.params(), stt.params(torch.device(CPU))
+        rng = np.random.default_rng(31)
+        n = np.arange(block)
+        for blk in range(2):
+            x = (0.5 * np.exp(2j * np.pi * 1600.0 / rate * (n + blk * block))
+                 + _cplx(rng, 2, block, scale=0.05)).astype(np.complex64)
+            js, jy, _ = sj.apply(js, pj, jnp.asarray(x))
+            ts, ty, _ = stt.apply(ts, pt, _t(x))
+            _close(ty.numpy(), jy, 3e-5, "secondary selector")
+
+    def test_set_slot_bandpass_matches_jax(self):
+        """One slot of a batched bandpass changed: the response and a
+        block through the stage equal the JAX stage's (stage tolerance)."""
+        rate, block = 24000.0, 2400
+        sj = jst.BandpassStage(np.array([-3000.0, 300.0, -5000.0]),
+                               np.array([-300.0, 3000.0, 5000.0]))
+        stt = tst.BandpassStage(np.array([-3000.0, 300.0, -5000.0]),
+                                np.array([-300.0, 3000.0, 5000.0]))
+        sj.plan(JSpec(JFormat.COMPLEX_FLOAT, rate), block)
+        stt.plan(TSpec(TFormat.COMPLEX_FLOAT, rate), block)
+        for s in (sj, stt):
+            s.set_slot_bandpass(1, 500.0, 2500.0)
+        np.testing.assert_array_equal(stt._low, [-3000.0, 500.0, -5000.0])
+        np.testing.assert_array_equal(stt._high, sj._high)
+        np.testing.assert_array_equal(stt._response, sj._response)
+        js, ts = sj.init_state((3,)), stt.init_state((3,), torch.device(CPU))
+        x = _cplx(np.random.default_rng(32), 3, block, scale=0.3)
+        _, jy, _ = sj.apply(js, sj.params(), jnp.asarray(x))
+        _, ty, _ = stt.apply(ts, stt.params(torch.device(CPU)), _t(x))
+        _close(ty.numpy(), jy, 3e-5, "slot bandpass")
+
 # ------------------------------------------------------------- chains --
 def _tone_iq(fs, block, nblocks, offset, mode, seed=0):
     """One modulated carrier at ``offset`` plus a little noise."""

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from openwebrx_tpu.ops.formats import Format as JFormat, StreamSpec as JSpec
 from openwebrx_tpu.runtime import chain as jchain
 from openwebrx_tpu.runtime.bank import ChannelBank as JaxChannelBank
 from openwebrx_tpu_torch.from_jax import bank_state_from_numpy
@@ -146,6 +147,40 @@ class TestBatchedDelivery:
             np.testing.assert_array_equal(tchain.host_as_complex64(block),
                                           jchain.host_as_complex64(block))
 
+
+    @pytest.mark.parametrize("kind", ["complex64", "float32", "int16", "uint8"])
+    def test_pack_input_matches_jax(self, kind):
+        """Program.pack_input: complex64 blocks come back as the packed
+        float32 view, packed float32/int16/uint8 blocks as they are, real
+        programs take their samples as they are; the same wrong sizes raise
+        ValueError on both sides."""
+        rng = np.random.default_rng(4)
+        block = 24000
+        chain = ClientDemodulatorChain(FS, 12000.0, "usb", compression="none")
+        tp = Program(chain, SPEC, block, device="cpu")
+        jp = jchain.Program(jchain.Chain([]), JSpec(JFormat.COMPLEX_FLOAT, FS), block)
+        c = (rng.standard_normal(block) + 1j * rng.standard_normal(block)
+             ).astype(np.complex64)
+        packed = tchain.host_pack_complex(c)
+        x = {"complex64": c, "float32": packed,
+             "int16": (packed * 20000).astype(np.int16),
+             "uint8": (packed * 100 + 127).astype(np.uint8)}[kind]
+        got, want = tp.pack_input(x), jp.pack_input(x)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+        for bad in (x[: block // 2], x[1:]):
+            with pytest.raises(ValueError):
+                jp.pack_input(bad)
+            with pytest.raises(ValueError):
+                tp.pack_input(bad)
+        real = Program(tchain.Chain([]), StreamSpec(Format.FLOAT, FS), block,
+                       device="cpu")
+        jreal = jchain.Program(jchain.Chain([]), JSpec(JFormat.FLOAT, FS), block)
+        r = c.real.copy()
+        assert real.pack_input(r) is r and jreal.pack_input(r) is r
+        for prog in (real, jreal):
+            with pytest.raises(ValueError):
+                prog.pack_input(r[1:])
 
 def _jax_program_state(prog):
     """A JAX Program's chain state with complex leaves as complex64."""

@@ -343,7 +343,7 @@ class TestGuards:
                     "ops/convert.py", "ops/timing.py", "ops/fsk.py",
                     "models/stages.py", "models/receiver.py", "models/secondary.py",
                     "models/fax.py", "models/digital_voice.py",
-                    "runtime/chain.py", "runtime/bank.py"):
+                    "runtime/chain.py", "runtime/bank.py", "runtime/device.py"):
             assert REPO / "openwebrx_tpu_torch" / rel in files, rel
         files += [REPO / "chip_smoke.py", REPO / "profile_torch_bank.py",
                   REPO / "compare_bank_ms.py"]

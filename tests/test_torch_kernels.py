@@ -287,9 +287,8 @@ class TestAdpcm:
         idxs = torch.from_numpy(rng.integers(0, 89, 3072,
                                              dtype=np.int32)).to(cuda_device)
         out = torch.empty((3072, 52), dtype=torch.uint8, device=cuda_device)
-        short.launch(x.data_ptr(), None, None, prev.data_ptr(), idxs.data_ptr(),
-                     out.data_ptr(), None, None, None, 3072, 1,
-                     kernels.stream_handle(cuda_device))
+        short.launch(cuda_device, x.data_ptr(), None, None, prev.data_ptr(),
+                     idxs.data_ptr(), out.data_ptr(), None, None, None, 3072, 1)
         assert torch.equal(out, tadpcm.encode_strides_plain(x, prev, idxs))
 
     @pytest.mark.cuda
@@ -601,3 +600,69 @@ class TestSquelch:
         fin = ~pp.isnan()
         assert float((pk[fin] - pp[fin]).abs().max()) <= SQUELCH_DB_ATOL
         _gates_exact_where_clear(pk, pp, lt, yk, yp, sk, sp)
+
+
+@pytest.fixture
+def second_card():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards (launches every kernel on cuda:1)")
+    return torch.device("cuda", 1)
+
+
+class TestSecondCard:
+    @pytest.mark.cuda
+    def test_every_wrapper_on_cuda1_matches_plain(self, second_card):
+        """Every kernel wrapper on cuda:1 tensors, from a thread whose
+        current device is still cuda:0: each launch makes its tensors'
+        device current (the IIR's grid sizing reads that device's SM
+        count), and each result equals its plain version as on cuda:0."""
+        dev = second_card
+        torch.cuda.set_device(0)
+        rng = np.random.default_rng(101)
+        u, bank2 = _fold_inputs(64, 16, 200, seed=5)
+        ut, bt = torch.from_numpy(u).to(dev), torch.from_numpy(bank2).to(dev)
+        v = polyphase_fold(ut, bt, 16, device=dev)
+        ref = polyphase_fold_plain(ut, bt, 16)
+        assert float((v - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+        x = torch.from_numpy(_audio_int16(rng, 64, 600)).to(dev)
+        lanes = x.reshape(-1, 2 * tadpcm.STATE_STRIDE).contiguous()
+        prev = torch.zeros(lanes.shape[0], dtype=torch.int32, device=dev)
+        assert torch.equal(tadpcm.encode_strides(lanes, prev, prev, device=dev),
+                           tadpcm.encode_strides_plain(lanes, prev, prev))
+        st = tadpcm.adpcm_init((64,), device=dev)
+        got, want = tadpcm.adpcm_encode(st, x), tadpcm.adpcm_encode_plain(st, x)
+        assert all(torch.equal(a, b) for a, b in zip((*got[0], *got[1]),
+                                                      (*want[0], *want[1])))
+        row = torch.from_numpy(_audio_int16(rng, 2, 4112)).to(dev)
+        st = tadpcm.adpcm_init((2,), device=dev)
+        got, want = tadpcm.adpcm_encode_seq(st, row), tadpcm.adpcm_encode_seq_plain(st, row)
+        assert all(torch.equal(a, b) for a, b in zip((*got[0], *got[1]),
+                                                      (*want[0], *want[1])))
+
+        for n in (600, 2400):            # the IIR's one-warp and CTA paths
+            xf = torch.from_numpy(rng.standard_normal((64, n)).astype(np.float32)).to(dev)
+            zero = torch.zeros(64, device=dev)
+            co = tiir.deemphasis_coeffs(48000.0, 150e-6)
+            (xl, yl), y = tiir.first_order_apply((zero, zero), *co, xf, device=dev)
+            (xp, yp), y_p = tiir.first_order_apply_plain((zero, zero), *co, xf)
+            assert float((y - y_p).abs().max()) <= 1e-5 * float(y_p.abs().max())
+            assert torch.equal(xl, xp)
+
+        xf = torch.from_numpy(rng.standard_normal((64, 2400)).astype(np.float32)).to(dev)
+        st = tagc.agc_init(tagc.FAST, (64,), device=dev)
+        got = tagc.agc_apply(st, tagc.FAST, xf, 50, device=dev)
+        want = tagc.agc_apply_plain(st, tagc.FAST, xf, 50)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0][0], want[0][0])
+
+        xs, level = _squelch_scene(8, 2400, 600, seed=9, dtype=np.complex64)
+        st = _state(rng, 8, dev)
+        xt, lt = torch.from_numpy(xs).to(dev), torch.from_numpy(level).to(dev)
+        sk, yk, pk = tsq.squelch_apply(st, lt, xt, 600)
+        sp, yp, pp = tsq.squelch_apply_plain(st, lt, xt, 600)
+        torch.cuda.synchronize(dev)
+        fin = ~pp.isnan()
+        assert torch.equal(pk.isnan(), pp.isnan())
+        assert float((pk[fin] - pp[fin]).abs().max()) <= SQUELCH_DB_ATOL
+        _gates_exact_where_clear(pk, pp, lt, yk, yp, sk, sp)
+        assert torch.cuda.current_device() == 0

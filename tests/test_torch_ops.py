@@ -7,6 +7,7 @@ test states.
 """
 
 import numpy as np
+import pytest
 import torch
 import jax.numpy as jnp
 
@@ -256,6 +257,45 @@ class TestAudioOps:
             np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=0, atol=2e-6)
             for a, b in zip(ts, js):
                 np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-7)
+
+    def test_noise_filter_chunked_quantile(self, monkeypatch):
+        """A spectrum above the quantile limit goes through torch.quantile
+        in chunks of whole channels: with the limit lowered, a 5-channel
+        bank chunks (2 channels a chunk), bit-identical to the unchunked
+        port, and against JAX within test_noise_filter's tolerance."""
+        rng = np.random.default_rng(17)
+        hop = 300
+        thr = np.array([-100.0, 0.0, 6.0, 3.0, -6.0], np.float32)
+        per_channel = 2 * 513                  # 600 / hop frames of 513 bins
+        js = jnr.nr_init((5,), hop)
+        whole, chunked = (tnr.nr_init((5,), hop, device=CPU) for _ in range(2))
+        calls = []
+        quantile = torch.quantile
+
+        def counted(t, *a, **kw):
+            calls.append(tuple(t.shape))
+            return quantile(t, *a, **kw)
+
+        for _ in range(3):
+            t = np.arange(600)
+            x = (0.3 * np.sin(2 * np.pi * 700 / 12000 * t)
+                 + 0.05 * rng.standard_normal((5, 600))).astype(np.float32)
+            js, jy = jnr.nr_apply(js, jnp.asarray(thr), jnp.asarray(x), hop)
+            whole, wy = tnr.nr_apply(whole, _t(thr), _t(x), hop)
+            with monkeypatch.context() as mp:
+                mp.setattr(tnr, "QUANTILE_LIMIT", 2 * per_channel)
+                mp.setattr(torch, "quantile", counted)
+                chunked, cy = tnr.nr_apply(chunked, _t(thr), _t(x), hop)
+            assert torch.equal(cy, wy)
+            assert all(torch.equal(a, b) for a, b in zip(chunked, whole))
+            np.testing.assert_allclose(cy.numpy(), np.asarray(jy), rtol=0, atol=2e-6)
+            np.testing.assert_allclose(chunked[2].numpy(), np.asarray(js[2]),
+                                       rtol=1e-5, atol=1e-7)
+        assert calls == [(2, 2, 513), (2, 2, 513), (1, 2, 513)] * 3
+        with monkeypatch.context() as mp:
+            mp.setattr(tnr, "QUANTILE_LIMIT", per_channel - 1)
+            with pytest.raises(ValueError, match="one channel"):
+                tnr.nr_apply(whole, _t(thr), _t(x), hop)
 
     def test_quantile_equals_percentile(self):
         mag = np.abs(np.random.default_rng(8).standard_normal((5, 2, 513))).astype(np.float32)

@@ -119,6 +119,11 @@ class TestOps:
         assert set(DV_FACTORY) == set(JAX_DV)
         assert isinstance(DV_FACTORY["ysf"](240000.0), DvSymbolChain)
 
+    def test_dv_decoders_equal_the_reference(self):
+        from openwebrx_tpu.models.digital_voice import DV_DECODERS as JAX_DECODERS
+        from openwebrx_tpu_torch.models.digital_voice import DV_DECODERS
+        assert DV_DECODERS == JAX_DECODERS
+
 
 class TestTextDecodes:
     def test_psk31(self):
@@ -259,3 +264,96 @@ class TestChainsAgainstJax:
         assert np.abs(tf - jf).max() <= CHAIN_RTOL * np.abs(jf).max()
         assert "TEST" in "".join(texts).replace(" ", ""), texts
         assert isinstance(tc, CwSkimmerChain) and tc.bin_hz == 93.75
+
+
+def _jax_state_numpy(prog):
+    """A JAX Program's chain state with complex leaves as complex64."""
+    import jax
+    from openwebrx_tpu.runtime.chain import _unpack_leaf
+    return jax.tree.map(lambda v, c: np.asarray(_unpack_leaf(v, c)), prog.state, prog._s_mask)
+
+
+def _secondary_signal(mode, offsets, n, rng):
+    """Two channels' worth of the mode's own signal at ``offsets`` plus
+    noise: DBPSK at the mode's baud, FSK at its shift, keyed CW."""
+    if mode.startswith("bpsk"):
+        baud = 31.25 if mode == "bpsk31" else 62.5
+        phases = np.cumprod(np.where(rng.integers(0, 2, int(n / FS * baud) + 2), 1.0, -1.0))
+        env = np.repeat(phases, int(FS / baud))[:n]
+        sig = sum(0.4 * env * np.exp(2j * np.pi * o / FS * np.arange(n)) for o in offsets)
+    elif mode == "cwdecoder":
+        key = np.repeat(rng.integers(0, 2, n // 2400 + 1), 2400)[:n]
+        sig = sum(0.5 * key * np.exp(2j * np.pi * o / FS * np.arange(n)) for o in offsets)
+    else:
+        baud, shift = {"rtty170": (45.45, 170.0), "rtty450": (50.0, 450.0),
+                       "rtty85": (50.0, 85.0)}.get(mode, (100.0, 170.0))
+        bits = rng.integers(0, 2, int(n / FS * baud) + 2)
+        sig = sum(fsk_iq(bits, o, baud, shift)[:n] for o in offsets)
+    noise = 0.02 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return (sig + noise).astype(np.complex64)
+
+
+class TestChainParityWithJax:
+    """PskChain, RttyChain (rtty170/450/85, sitorb, navtex, dsc), CwChain
+    and every DvSymbolChain block for block against the JAX chains, two
+    channels at different offsets.  The FSK chains' FM discriminator sees
+    the filters' start-up ramp (~1e-7) in block 0, whose rounding differs
+    between any two float32 implementations, and the timing recovery keeps
+    that in its offset estimate: those chains take the JAX chain's state
+    after block 0 (as the analog chains do) and blocks 1-3 are compared."""
+
+    @pytest.mark.parametrize("mode", ["bpsk31", "bpsk63", "rtty170", "rtty450", "rtty85",
+                                      "sitorb", "navtex", "dsc", "cwdecoder"])
+    def test_secondary_chain_block_for_block(self, mode):
+        from openwebrx_tpu_torch.from_jax import bank_state_from_numpy
+        jc, tc, jp, tp = _jax_and_port(mode, FS)
+        offsets = np.array([1000.0, -2500.0])
+        for c in (jc, tc):
+            c.selector.shift.set_rate(-offsets / FS)
+        handover = not (mode.startswith("bpsk") or mode == "cwdecoder")
+        x = _secondary_signal(mode, offsets, 4 * jp.block, np.random.default_rng(len(mode)))
+        for b, blk in enumerate(np.split(x, 4)):
+            if b == 1 and handover:
+                tp.state = bank_state_from_numpy(_jax_state_numpy(jp), "cpu")
+            (jy, ja), (ty, ta) = jp.process(blk), tp.process(blk)
+            jy = np.asarray(jy)
+            assert ty.dtype == jy.dtype and ty.shape == jy.shape
+            if b or not handover:
+                assert np.abs(ty - jy).max() <= CHAIN_RTOL * np.abs(jy).max(), (mode, b)
+            jr, tr = np.asarray(ja["secondary_fft.rows"]), ta["secondary_fft.rows"]
+            mask = jr >= jr.max(axis=-1, keepdims=True) - 60.0
+            assert np.abs(tr - jr)[mask].max() <= AUX_DB_ATOL
+
+    @pytest.mark.parametrize("mode", sorted(DV_FACTORY))
+    def test_dv_chain_block_for_block(self, mode):
+        """C4FM at the mode's baud on two channels (240 kHz input): after
+        block 0 (the discriminator's start-up, ≥ 95 % agreement) every
+        dibit equals the JAX chain's."""
+        import sys
+        sys.path.insert(0, "tests")
+        from test_digital_voice import c4fm_waveform
+        fs = 240000.0
+        jc, tc = JAX_DV[mode](fs), DV_FACTORY[mode](fs)
+        tspec, jspec = StreamSpec(Format.COMPLEX_FLOAT, fs), JaxSpec(JaxFormat.COMPLEX_FLOAT, fs)
+        block = plan_block_size(tc, tspec, 0.1)
+        assert block == jax_plan(jc, jspec, 0.1)
+        jp = JaxProgram(jc, jspec, block, (2,))
+        tp = Program(tc, tspec, block, (2,), device="cpu")
+        offsets = np.array([20000.0, -30000.0])
+        for c in (jc, tc):
+            c.selector.shift.set_rate(-offsets / fs)
+        rng = np.random.default_rng(4)
+        baud = 2400.0 if mode == "nxdn" else 4800.0
+        dibits = rng.integers(0, 4, int(3 * block / fs * baud) + 10)
+        x = sum(c4fm_waveform(dibits, baud=baud, offset_hz=o, fs=fs)[: 3 * block]
+                for o in offsets)
+        x = (x + 0.02 * (rng.standard_normal(len(x)) + 1j * rng.standard_normal(len(x)))
+             ).astype(np.complex64)
+        for b, blk in enumerate(np.split(x, 3)):
+            (jy, _), (ty, _) = jp.process(blk), tp.process(blk)
+            jy = np.asarray(jy)
+            assert ty.dtype == jy.dtype == np.uint8 and ty.shape == jy.shape
+            if b:
+                np.testing.assert_array_equal(ty, jy)
+            else:
+                assert np.mean(ty == jy) >= 0.95
