@@ -66,6 +66,25 @@ Phases (any failure raises and the script exits non-zero):
    shorter build, first checked against the plain recurrence and for the
    same main loop in its SASS), the row encoder on one row of 2064 and of
    4112 nibbles.
+7. the port's web server (run after phase 5, inside its record of the
+   kernels' shapes, and before the timings of phase 6): (a) the CLI as a
+   user starts it, ``python -m openwebrx_tpu_torch --signal-demo --port
+   N`` (a settings file only turns the web agents' downloads off), which
+   builds the kernels before it listens; one WebSocket listener runs
+   tests/test_server.py's full session (handshake messages, the 145 kHz
+   NFM tone at ≥ 15 dB, smeter, a switch to the AM carrier, the demo's
+   carriers in their waterfall bins) and SIGTERM stops it cleanly;
+   (b) ``HttpServer(build_router())`` in this process on a looped seeded
+   cu8 recording at 8.192 MS/s (config #6's rate, 0.2 s blocks, a
+   compressed 4096-bin waterfall) with 64 WebSocket listeners, 32 USB, 16
+   NFM and 16 AM on carriers of their own, each with the waterfall: every
+   listener routed to its filterbank, its tone at ≥ 15 dB, its audio
+   bytes within 10 % of nominal over a 15 s window, every block of the
+   window launching SRV_LAUNCHES_PER_BLOCK, ``realtime_factor`` ≥ 1 on
+   /metrics, no ERROR record; it logs ms/block, the host split, the
+   first-audio latency from ``dspcontrol`` (p50, p95) and peak memory;
+   (c) ``/api/profile`` on the running server returns a trace with CUDA
+   kernel events.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -81,6 +100,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -131,28 +151,31 @@ SEQ_ROW = 4112
 SEQ_SHORT_ROW = 2064
 
 # The shapes the full-width paths give the AGC (profile, x, chunk), the
-# ADPCM encoders (samples) and the squelch (x, window), as phase 5 records
-# them
+# ADPCM encoders (samples) and the squelch (x, window), as phases 5 and 7
+# record them (the server's SSB and AM banks share config #3's AGC and
+# squelch shapes)
 AGC_PATH_CASES = {"usb": ("SLOW", (M, 600), 50), "nfm": ("FAST", (M, 2400), 50),
                   "am": ("SLOW", (2 * M, 600), 50), "cfg1": ("FAST", (4800,), 50),
                   "cfg2": ("SLOW", (64, 600), 50), "cfg2 edge": ("SLOW", (16, 600), 50),
                   "cfg4": ("SLOW", (16, 1536), 48), "cfg3": ("SLOW", (64, 2400), 50),
-                  "cfg6": ("SLOW", (256, 2400), 50), "cfg6 edge": ("SLOW", (16, 2400), 50)}
+                  "cfg6": ("SLOW", (256, 2400), 50), "cfg6 edge": ("SLOW", (16, 2400), 50),
+                  "server nfm": ("FAST", (64, 9600), 50)}
 ADPCM_PATH_SHAPES = {"usb": (M, 600), "nfm": (M, 600), "am": (2 * M, 600),
                      "wfm": (128, 9600), "cfg1": (1200,), "cfg2": (64, 600),
-                     "cfg2 edge": (16, 600), "cfg6": (256, 2400), "cfg6 edge": (16, 2400)}
+                     "cfg2 edge": (16, 600), "cfg6": (256, 2400), "cfg6 edge": (16, 2400),
+                     "server": (64, 2400)}
 SQUELCH_PATH_CASES = {"usb": ((M, 600), 600), "nfm": ((M, 2400), 2400),
                       "am": ((2 * M, 600), 600), "wfm": ((128, 50000), 12500),
                       "cfg1": ((4800,), 2400), "cfg2": ((64, 600), 600),
                       "cfg2 edge": ((16, 600), 600), "cfg4": ((16, 1536), 768),
                       "cfg3": ((64, 2400), 800), "cfg6": ((256, 2400), 800),
-                      "cfg6 edge": ((16, 2400), 800)}
+                      "cfg6 edge": ((16, 2400), 800), "server nfm": ((64, 9600), 3200)}
 # one waterfall row a block; two at 8.192 MS/s (the threaded run)
 ADPCM_SEQ_PATH_SHAPES = {(1, SEQ_ROW), (2, SEQ_ROW)}
 # the first-order IIR (x) on the paths that run one: the NFM and WFM
 # de-emphasis, the AM DC blocker, config #1's de-emphasis
 IIR_PATH_CASES = {"nfm": (M, 2400), "am": (2 * M, 600), "wfm": (128, 9600),
-                  "cfg1": (4800,)}
+                  "cfg1": (4800,), "server nfm": (64, 9600), "server am": (64, 2400)}
 # the row encoder's real rows: config #2's waterfall (29 averaged frames of
 # a 2.4 MS/s block) and the 49.152 MS/s one (600 frames), as (rate, block,
 # frames a second, carriers)
@@ -170,6 +193,29 @@ CFG6_LISTENERS, CFG6_WARM, CFG6_TIMED = 256, 6, 24
 CFG6_TONES = (200, 201, 202, 203)     # listeners the churn never moves
 RT_DEADLINE_S = 120.0       # the threaded run waits at most this long
 RT_THREADED_ROWS, RT_THREADED_FRAMES = 20, 10   # ... for this many rows and frames
+
+# Phase 7: the port's web server.  7a: the CLI's --signal-demo (2.4 MS/s);
+# 7b: in process, a looped seeded cu8 file at config #6's 8.192 MS/s,
+# 0.2 s blocks, a compressed 4096-bin waterfall and 64 WebSocket
+# listeners (32 USB, 16 NFM, 16 AM) on carriers of their own
+SRV_MODES = ("usb",) * 32 + ("nfm",) * 16 + ("am",) * 16
+SRV_FILE_SECONDS = 0.4       # the file's loop: every carrier whole cycles
+SRV_NOISE, SRV_CARRIER_AMP = 0.01, 0.03   # 64 carriers: ~5 sigma to clipping
+# each block: the SSB, NFM and AM filterbanks' fold, squelch, AGC and ADPCM
+# encode, the NFM de-emphasis and the AM DC blocker, and one row-encoder
+# launch for the waterfall's two rows
+SRV_LAUNCHES_PER_BLOCK = {"fold.cu": 3, "adpcm.cu": 3, "iir.cu": 2, "agc.cu": 3,
+                          "squelch.cu": 3, "adpcm_seq.cu": 1}
+SRV_WARM_S = 3.0             # after every listener heard its first audio
+SRV_WINDOW_S = 15.0          # the timed window
+SRV_RATE_TOL = 0.10          # audio bytes a second against nominal
+SRV_PROFILE_S = 1.0          # 7c: /api/profile?seconds=
+SRV_DEADLINE_S = 120.0       # any wait of phase 7 (start-up, first audio)
+# 12 kHz IMA ADPCM: 4 bits a sample plus an 8-byte SYNC header every 100
+# bytes (ops/adpcm.py SyncFramer)
+SRV_AUDIO_BYTES_PER_S = 12000 / 2 * 1.08
+
+ROOT = Path(__file__).resolve().parent
 
 
 class SmokeFailure(RuntimeError):
@@ -904,6 +950,551 @@ def runtime_paths(torch, dev, smi, paths, launches_by_path):
     torch.cuda.empty_cache()
 
 
+class WsClient:
+    """The browser's side of the receiver's WebSocket (RFC 6455: masked
+    frames out, pings answered), for phase 7."""
+
+    def __init__(self, reader, writer):
+        self.reader, self.writer = reader, writer
+
+    @classmethod
+    async def connect(cls, port):
+        import asyncio
+        import base64
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        key = base64.b64encode(os.urandom(16)).decode()
+        writer.write((f"GET /ws/ HTTP/1.1\r\nHost: localhost\r\nUpgrade: websocket\r\n"
+                      f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+                      "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        await writer.drain()
+        head = await reader.readuntil(b"\r\n\r\n")
+        check(b" 101 " in head.split(b"\r\n")[0], f"websocket upgrade refused: {head[:80]!r}")
+        return cls(reader, writer)
+
+    async def _send(self, opcode, payload: bytes):
+        import struct
+        mask, n = os.urandom(4), len(payload)
+        head = bytes([0x80 | opcode, 0x80 | min(n, 126)])
+        if n >= 126:
+            head += struct.pack(">H", n)
+        body = (np.frombuffer(payload, np.uint8)
+                ^ np.resize(np.frombuffer(mask, np.uint8), n)).tobytes()
+        self.writer.write(head + mask + body)
+        await self.writer.drain()
+
+    async def send_json(self, msg):
+        await self._send(0x1, json.dumps(msg).encode())
+
+    async def receive(self):
+        """The next data frame → (opcode, payload); pings are answered."""
+        import struct
+        while True:
+            head = await self.reader.readexactly(2)
+            opcode, n = head[0] & 0x0F, head[1] & 0x7F
+            if n == 126:
+                n, = struct.unpack(">H", await self.reader.readexactly(2))
+            elif n == 127:
+                n, = struct.unpack(">Q", await self.reader.readexactly(8))
+            payload = await self.reader.readexactly(n) if n else b""
+            if opcode == 0x9:
+                await self._send(0xA, payload)
+                continue
+            return opcode, payload
+
+    async def expect_json(self, msg_type):
+        """The next text message of ``msg_type`` (others are skipped)."""
+        import asyncio
+
+        async def wait():
+            while True:
+                opcode, payload = await self.receive()
+                if opcode == 0x1:
+                    msg = json.loads(payload)
+                    if msg.get("type") == msg_type:
+                        return msg
+        return await asyncio.wait_for(wait(), SRV_DEADLINE_S)
+
+    async def handshake(self):
+        opcode, payload = await self.receive()
+        check(opcode == 0x1 and payload.startswith(b"CLIENT DE SERVER"),
+              f"no server greeting: {payload[:60]!r}")
+        await self._send(0x1, b"SERVER DE CLIENT client=chip_smoke type=receiver")
+
+    def close(self):
+        self.writer.close()
+
+
+async def http_request(port, method, path, body=None, cookie=None):
+    """One HTTP/1.1 request to the local server → (status, body, cookie)."""
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    payload = json.dumps(body).encode() if body is not None else b""
+    head = [f"{method} {path} HTTP/1.1", "Host: localhost",
+            f"Content-Length: {len(payload)}", "Connection: close"]
+    if cookie:
+        head.append(f"Cookie: {cookie}")
+    writer.write(("\r\n".join(head) + "\r\n\r\n").encode() + payload)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    top, _, out = raw.partition(b"\r\n\r\n")
+    set_cookie = None
+    for line in top.split(b"\r\n"):
+        if line.lower().startswith(b"set-cookie:"):
+            set_cookie = line.split(b":", 1)[1].split(b";")[0].strip().decode()
+    return int(top.split(b" ")[1]), out, set_cookie
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def audio_snr(data: bytes, f_tone, adpcm, seconds=1.0):
+    """Tone SNR of a listener's last ``seconds`` of audio → (dB, samples),
+    decoded from the first SYNC header of the stream's tail on (the decoder
+    is a Python loop)."""
+    tail = bytes(data[-int(seconds * SRV_AUDIO_BYTES_PER_S) - 2 * (adpcm.SYNC_INTERVAL + 8):])
+    pcm = decode_wire([tail[tail.find(b"SYNC"):]], adpcm)[-int(12000 * seconds):]
+    return tone_snr(pcm.astype(np.float32) / 32767, f_tone, 12000.0), len(pcm)
+
+
+def wf_bin(offset_hz, fs):
+    return WF_SIZE // 2 + int(round(offset_hz / fs * WF_SIZE))
+
+
+def cli_session(smi, paths, adpcm):
+    """Phase 7a: ``python -m openwebrx_tpu_torch --signal-demo`` as a user
+    starts it (the settings file only turns the web agents' downloads off),
+    one WebSocket listener through tests/test_server.py's full session."""
+    import asyncio
+    import signal
+    from openwebrx_tpu_torch.web.server import SIGNAL_DEMO_CONFIG
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    settings = work / "settings.json"
+    settings.write_text(json.dumps({"version": 8, "web_agents_enabled": False}))
+    port = free_port()
+    fs = float(SIGNAL_DEMO_CONFIG["samp_rate"])
+    out = {}
+
+    async def session(proc, t_launch):
+        deadline = time.perf_counter() + SRV_DEADLINE_S
+        while True:
+            check(proc.poll() is None, f"7a: the server exited with {proc.returncode}")
+            check(time.perf_counter() < deadline, "7a: the server never answered")
+            try:
+                status, body, _ = await http_request(port, "GET", "/status.json")
+                if status == 200:
+                    break
+            except OSError:
+                await asyncio.sleep(0.2)
+        out["ready_s"] = time.perf_counter() - t_launch
+        client = await WsClient.connect(port)
+        await client.handshake()
+        details = await client.expect_json("receiver_details")
+        modes = await client.expect_json("modes")
+        profiles = await client.expect_json("profiles")
+        config = await client.expect_json("config")
+        check("receiver_name" in details["value"]
+              and {"nfm", "am", "usb", "lsb", "cw", "sam", "wfm"}
+              <= {m["modulation"] for m in modes["value"]}
+              and profiles["value"][0]["id"] == "demo|default"
+              and config["value"]["samp_rate"] == int(fs),
+              "7a: handshake messages")
+
+        async def listen(params, seconds, rows=0):
+            """Audio bytes (and waterfall rows) after ``params``."""
+            t0 = time.perf_counter()
+            await client.send_json({"type": "dspcontrol", "params": params})
+            audio, got, smeter, first = bytearray(), [], [], None
+            while len(audio) < seconds * SRV_AUDIO_BYTES_PER_S or len(got) < rows:
+                check(time.perf_counter() - t0 < SRV_DEADLINE_S, "7a: audio stalled")
+                opcode, payload = await asyncio.wait_for(client.receive(), SRV_DEADLINE_S)
+                if opcode == 0x2 and payload[:1] == b"\x02":
+                    first = first or time.perf_counter() - t0
+                    audio.extend(payload[1:])
+                elif opcode == 0x2 and payload[:1] == b"\x01":
+                    got.append(payload[1:])
+                elif opcode == 0x1 and json.loads(payload).get("type") == "smeter":
+                    smeter.append(json.loads(payload)["value"])
+            return audio, got, smeter, first
+
+        await client.send_json({"type": "dspcontrol", "action": "start"})
+        nfm, rows, smeter, first = await listen(
+            {"offset_freq": 145000, "squelch_level": -150}, 2.0, rows=3)
+        am, _, _, _ = await listen({"mod": "am", "offset_freq": -200000}, 2.0)
+        client.close()
+        out.update(nfm=nfm, rows=rows, smeter=smeter, first_audio_s=first, am=am)
+
+    log_path = work / "cli.log"
+    cmd = [sys.executable, "-m", "openwebrx_tpu_torch", "--signal-demo",
+           "--port", str(port), "--config", str(settings)]
+    with open(log_path, "w") as logf:
+        t_launch = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT,
+                                env={**os.environ, "PYTHONPATH": str(ROOT)})
+        try:
+            try:
+                asyncio.run(session(proc, t_launch))
+            finally:
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGTERM)
+                    proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rc = proc.returncode
+    text = log_path.read_text()
+    check(rc == 0 and "ready on" in text and "shutting down" in text
+          and " ERROR " not in text,
+          f"7a: the server exited {rc}; its log ends: {text[-3000:]}")
+    built = re.search(r"kernels built in ([0-9.]+) s", text)
+    check(built is not None, "7a: the server did not build the kernels before listening")
+    snr_nfm, n_nfm = audio_snr(out["nfm"], 1000.0, adpcm)
+    snr_am, n_am = audio_snr(out["am"], 800.0, adpcm)
+    log(f"[cli] {' '.join(cmd[1:])}: kernels built in {built.group(1)} s, answered "
+        f"after {out['ready_s']:.1f} s; first audio {out['first_audio_s'] * 1e3:.0f} ms "
+        f"after dspcontrol; NFM 145 kHz tone SNR {snr_nfm:.1f} dB ({n_nfm} samples), "
+        f"AM -200 kHz tone SNR {snr_am:.1f} dB; {len(out['smeter'])} smeter readings")
+    check(snr_nfm >= TONE_SNR_MIN_DB, f"7a: NFM tone SNR {snr_nfm:.1f} dB")
+    check(snr_am >= TONE_SNR_MIN_DB, f"7a: AM tone SNR {snr_am:.1f} dB")
+    check(out["smeter"] and all(isinstance(v, float) for v in out["smeter"]),
+          "7a: no smeter readings")
+    nb = len(out["rows"][-1])
+    check(all(len(r) == nb for r in out["rows"]) and nb > 2000,
+          f"7a: waterfall rows of {sorted({len(r) for r in out['rows']})} bytes")
+    row = decoded_row(out["rows"][-1], nb, adpcm)
+    floor = float(np.median(row[:WF_SIZE]))
+    found = []
+    for sig in SIGNAL_DEMO_CONFIG["signals"]:
+        kind, off = sig["kind"], sig["offset_hz"]
+        if kind == "usb":                     # one line, the tone
+            k, span = wf_bin(off + sig["f_audio"], fs), 1
+        elif kind == "am":                    # the carrier
+            k, span = wf_bin(off, fs), 1
+        else:   # FM: its lines spread ±(deviation + tone), 7 bins at 2.4 MS/s
+            k, span = wf_bin(off, fs), int(np.ceil(4000.0 / (fs / WF_SIZE)))
+        peak = k - 8 - span + int(np.argmax(row[k - 8 - span:k + 9 + span]))
+        found.append(f"{kind} {off:+.0f} Hz: bin {peak} (expected {k} ± {span}), "
+                     f"{row[peak] - floor:.1f} dB above the median")
+        check(abs(peak - k) <= span and row[peak] - floor > 10.0,
+              f"7a: waterfall: {found[-1]}")
+    log("[cli] waterfall: " + "; ".join(found))
+    log(f"[cli] phase 7a took {time.perf_counter() - t_phase:.1f} s")
+    paths["cli"] = {"ready_s": out["ready_s"], "kernel_build_s": float(built.group(1)),
+                    "first_audio_ms": out["first_audio_s"] * 1e3,
+                    "snr_db": {"nfm": snr_nfm, "am": snr_am}}
+
+
+def server_plan(rt):
+    """Phase 7b's 64 dials, one per listener: centres of a grid every
+    bucket's filterbank shares (the coarsest of their channel spacings),
+    spread over ±45 % of the band, +500 Hz; modes interleaved."""
+    spacing = RT_FS / min(rt._pfb_m_for(b) for b in ("ssb", "nfm", "am"))
+    top = int(0.45 * RT_FS / spacing)
+    grid = [j for j in range(-top, top + 1) if j]
+    picks = np.linspace(0, len(grid) - 1, len(SRV_MODES)).round().astype(int)
+    check(len(set(picks)) == len(SRV_MODES), "7b: not enough distinct channels")
+    modes = [SRV_MODES[i] for i in np.random.default_rng(7).permutation(len(SRV_MODES))]
+    return [(mode, grid[p] * spacing + 500.0) for mode, p in zip(modes, picks)]
+
+
+def write_server_file(torch, dev, path, plan):
+    """The 7b recording: seeded noise plus each listener's carrier (USB: a
+    tone TONE_AUDIO_HZ above the dial; NFM: FM at 3 kHz deviation; AM: 60 %)
+    at a seeded random phase (carriers on a regular grid in phase would add
+    up to periodic peaks that clip) over SRV_FILE_SECONDS, as cu8 pairs
+    (bias 127.4, ±128 full scale, as ops/convert.py reads them).  Every
+    carrier completes whole cycles over the file, so the looped source is
+    seamless."""
+    n = int(SRV_FILE_SECONDS * RT_FS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    t = torch.arange(n, device=dev, dtype=torch.float64)
+    x = torch.complex(torch.randn(n, generator=gen, device=dev),
+                      torch.randn(n, generator=gen, device=dev)) * SRV_NOISE
+    phases = torch.rand(len(plan), generator=gen, device=dev, dtype=torch.float64)
+    for (mode, dial), phase in zip(plan, phases):
+        cycles = (dial + TONE_AUDIO_HZ) * SRV_FILE_SECONDS
+        check(abs(cycles - round(cycles)) < 1e-6, f"7b: {dial} Hz does not loop")
+        rot = torch.polar(torch.ones((), device=dev, dtype=torch.float64),
+                          2 * np.pi * phase).to(torch.complex64)
+        x = x + modulated(torch, t, RT_FS, dial, mode, SRV_CARRIER_AMP) * rot
+    packed = torch.view_as_real(x.to(torch.complex64)).cpu().numpy()
+    clipped = float(np.mean(np.abs(packed) > 127.4 / 128))
+    np.clip(np.rint(packed * 128.0 + 127.4), 0, 255).astype(np.uint8).tofile(path)
+    return clipped
+
+
+def server_paths(torch, dev, smi, paths, launches_by_path):
+    """Phase 7b and 7c: the port's server in this process on a looped cu8
+    recording at 8.192 MS/s, 64 WebSocket listeners with the waterfall,
+    then /api/profile on the card."""
+    import asyncio
+    from collections import deque
+    from openwebrx_tpu_torch import kernels
+    from openwebrx_tpu_torch.core.config import Config, CoreConfig
+    from openwebrx_tpu_torch.core.users import SessionStorage, UserList
+    from openwebrx_tpu_torch.ops import adpcm
+    from openwebrx_tpu_torch.sdr import SdrService
+    from openwebrx_tpu_torch.web.http import HttpServer
+    from openwebrx_tpu_torch.web.server import build_router
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke"
+    data_dir = work / "data"
+    data_dir.mkdir(parents=True, exist_ok=True)
+    CoreConfig.defaults.update(data_directory=str(data_dir),
+                               temporary_directory=str(data_dir))
+    users = UserList(str(data_dir / "users.json"))
+    if "smoke" not in users:
+        users.add_user("smoke", "smoke")
+    UserList.shared = staticmethod(lambda: users)
+    SessionStorage._instance = None
+    errors = ErrorRecords()
+    logging.getLogger("openwebrx_tpu_torch").addHandler(errors.handler)
+
+    path = work / "srv_8192k.cu8"
+    center = 100_000_000
+    Config.reset()
+    cfg = Config.get()
+    cfg["tpu_block_seconds"] = 0.2
+    cfg["fft_size"] = WF_SIZE
+    cfg["max_clients"] = cfg["max_clients_per_ip"] = 2 * len(SRV_MODES)
+    cfg["sdrs"] = {"srv": {
+        "name": "8.192 MS/s recording", "type": "file", "file_path": str(path),
+        "file_format": "cu8", "samp_rate": int(RT_FS), "center_freq": center,
+        "throttle": True,
+        "profiles": {"default": {"name": "8.192 MS/s", "center_freq": center,
+                                 "samp_rate": int(RT_FS), "start_freq": center,
+                                 "start_mod": "usb"}}}}
+    SdrService.device = dev
+    SdrService.load()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.ALL:
+        k.launches = 0
+    rt = SdrService.get_device("srv")
+    check(rt is not None and rt.block == 1638400, "7b: the runtime's plan")
+    plan = server_plan(rt)
+    clipped = write_server_file(torch, dev, path, plan)
+    nb_row = rt.fft_chain.waterfall.wire_bytes_per_row
+
+    # the loop's blocks: host time by part and each block's kernel launches
+    spent = {"dispatch": 0.0, "wait": 0.0, "deliver": 0.0}
+    per_block, window = [], {"on": False}
+    dispatch, complete = rt._dispatch_block, rt._complete_block
+
+    def timed_dispatch(block):
+        before = [k.launches for k in kernels.ALL]
+        t0 = time.perf_counter()
+        pend = dispatch(block)
+        if window["on"]:
+            spent["dispatch"] += time.perf_counter() - t0
+            per_block.append(tuple(k.launches - b for k, b in zip(kernels.ALL, before)))
+        return pend
+
+    def timed_complete(pend):
+        t0 = time.perf_counter()
+        for p in [*pend["fft_pending"], *(q for ps in pend["bank_pending"].values()
+                                            for q in ps)][:1]:
+            if p.event is not None:       # one event for all of them
+                p.event.synchronize()
+        t1 = time.perf_counter()
+        complete(pend)
+        if window["on"]:
+            spent["wait"] += t1 - t0
+            spent["deliver"] += time.perf_counter() - t1
+
+    rt._dispatch_block, rt._complete_block = timed_dispatch, timed_complete
+    out, buckets = {}, {}
+
+    async def reader(client, st):
+        try:
+            while True:
+                opcode, payload = await client.receive()
+                if opcode == 0x2 and payload[:1] == b"\x02":
+                    if st["first"] is None:
+                        st["first"] = time.perf_counter() - st["t0"]
+                        st["first_blocks"] = rt.gauges["blocks"] - st["block0"]
+                    st["audio"].extend(payload[1:])
+                elif opcode == 0x2 and payload[:1] == b"\x01":
+                    st["rows"] += 1
+                    st["row"] = payload[1:]
+        except (asyncio.IncompleteReadError, ConnectionError):
+            pass
+
+    async def run():
+        server = HttpServer(build_router(), port=0, host="127.0.0.1")
+        await server.start()
+        port = server._server.sockets[0].getsockname()[1]
+        clients, states, tasks = [], [], []
+        t_connect = time.perf_counter()
+        try:
+            for mode, dial in plan:
+                client = await WsClient.connect(port)
+                await client.handshake()
+                await client.expect_json("config")
+                st = {"mode": mode, "dial": dial, "audio": bytearray(), "rows": 0,
+                      "row": None, "first": None, "t0": time.perf_counter(),
+                      "block0": rt.gauges["blocks"]}
+                await client.send_json({"type": "dspcontrol", "action": "start"})
+                await client.send_json({"type": "dspcontrol", "params": {
+                    "mod": mode, "offset_freq": dial, "squelch_level": -150}})
+                clients.append(client)
+                states.append(st)
+                tasks.append(asyncio.create_task(reader(client, st)))
+            out["connect_s"] = time.perf_counter() - t_connect
+            deadline = time.perf_counter() + SRV_DEADLINE_S
+            while any(st["first"] is None for st in states):
+                check(time.perf_counter() < deadline, "7b: a listener never heard audio")
+                await asyncio.sleep(0.05)
+            with rt._lock:
+                for h in rt.handles:
+                    buckets[h.bucket_key] = buckets.get(h.bucket_key, 0) + 1
+            await asyncio.sleep(SRV_WARM_S)
+            marks = [len(st["audio"]) for st in states]
+            rows0 = [st["rows"] for st in states]
+            window["on"] = True
+            t0 = time.perf_counter()
+            await asyncio.sleep(SRV_WINDOW_S)
+            window["on"] = False
+            out["window_s"] = time.perf_counter() - t0
+            out["rates"] = [(len(st["audio"]) - m) / out["window_s"]
+                            for st, m in zip(states, marks)]
+            out["rows"] = [st["rows"] - r for st, r in zip(states, rows0)]
+            status, body, _ = await http_request(port, "GET", "/metrics")
+            out["metrics"] = body.decode()
+            # 7c: a profile of the running server on the card
+            status, _, cookie = await http_request(
+                port, "POST", "/login", {"username": "smoke", "password": "smoke"})
+            check(status == 200 and cookie, f"7c: login answered {status}")
+            status, body, _ = await http_request(
+                port, "POST", f"/api/profile?seconds={SRV_PROFILE_S}", cookie=cookie)
+            check(status == 200, f"7c: /api/profile answered {status}: {body[:200]!r}")
+            out["profile"] = json.loads(body)
+        finally:
+            for client in clients:
+                client.close()
+            for task in tasks:
+                task.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+            await server.stop()
+            SdrService.stop_all()
+        out["states"] = states
+
+    try:
+        asyncio.run(run())
+    finally:
+        SdrService.stop_all()
+        logging.getLogger("openwebrx_tpu_torch").removeHandler(errors.handler)
+        del rt._dispatch_block, rt._complete_block
+    torch.cuda.synchronize()
+    launches = {k.source.name: k.launches for k in kernels.ALL}
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    launches_by_path["server"] = launches
+    states = out["states"]
+    errors.check("server")
+
+    gauges = dict(rt.gauges)
+    n_win = len(per_block)
+    names = [k.source.name for k in kernels.ALL]
+    shapes = sorted(set(per_block))
+    log(f"[server] {len(states)} listeners ({', '.join(f'{m} {SRV_MODES.count(m)}' for m in dict.fromkeys(SRV_MODES))}) "
+        f"routed {buckets}; {n_win} blocks in {out['window_s']:.2f} s; launches a block "
+        f"in the window: {[dict(zip(names, s)) for s in shapes]}; whole run {launches} "
+        f"({gauges['blocks']} blocks); cu8 samples clipped {clipped:.2e}")
+    expected = tuple(SRV_LAUNCHES_PER_BLOCK[n] for n in names)
+    check(shapes == [expected], f"server: launches a block {shapes}, expected {expected}")
+    check(all(v > 0 for v in launches.values()), f"server: a kernel never launched: {launches}")
+    check(n_win >= 0.9 * SRV_WINDOW_S / 0.2, f"server: {n_win} blocks in the window")
+    check(buckets == {"pfbi:ssb": 32, "pfbi:nfm": 16, "pfbi:am": 16},
+          f"server: listeners routed to {buckets}")
+    rates = np.asarray(out["rates"]) / SRV_AUDIO_BYTES_PER_S
+    first = np.asarray([st["first"] for st in states]) * 1e3
+    first_blocks = [st["first_blocks"] for st in states]
+    log(f"[server] {len(states)} listeners connected and started in {out['connect_s']:.2f} s; "
+        f"first audio after dspcontrol (ms, in connection order): "
+        f"{[round(v) for v in first]}; loop blocks in between: {first_blocks}")
+    snrs = []
+    for st in states:
+        snr, n = audio_snr(st["audio"], TONE_AUDIO_HZ, adpcm)
+        snrs.append(snr)
+        st["snr"] = snr
+        check(snr >= TONE_SNR_MIN_DB and n == 12000,
+              f"server: {st['mode']} listener at {st['dial']:.0f} Hz: tone SNR {snr:.1f} dB")
+    check(np.all(np.abs(rates - 1) <= SRV_RATE_TOL),
+          f"server: audio byte rates {rates.min():.3f}..{rates.max():.3f} of nominal")
+    check(min(out["rows"]) >= 2 * 0.9 * n_win, f"server: waterfall rows {min(out['rows'])}")
+    rt_factor = re.search(r"^device_srv_realtime_factor ([0-9.]+)$", out["metrics"], re.M)
+    proc_ms = re.search(r"^device_srv_proc_block_ms ([0-9.]+)$", out["metrics"], re.M)
+    check(rt_factor is not None and float(rt_factor.group(1)) >= 1.0,
+          f"server: realtime_factor on /metrics: {rt_factor and rt_factor.group(1)}")
+    check(len(states[0]["row"]) == nb_row, f"server: waterfall rows of "
+          f"{len(states[0]['row'])} bytes, expected {nb_row}")
+    row = decoded_row(states[0]["row"], nb_row, adpcm)
+    floor = float(np.median(row))
+    for mode, dial in plan:
+        if mode != "usb":
+            continue
+        k = wf_bin(dial + TONE_AUDIO_HZ, RT_FS)
+        peak = k - 4 + int(np.argmax(row[k - 4:k + 5]))
+        check(abs(peak - k) <= 1 and row[peak] - floor > 3.0,
+              f"server: waterfall tone at {dial + TONE_AUDIO_HZ:.0f} Hz peaks in bin "
+              f"{peak}, expected {k}")
+    parts = {k: v / n_win * 1e3 for k, v in spent.items()}
+    log(f"[server] {smi}: proc_block_ms {proc_ms.group(1)} (the loop's average), "
+        f"realtime_factor {rt_factor.group(1)} (/metrics); host ms a block in the "
+        f"window: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; audio bytes/s {rates.min():.4f}..{rates.max():.4f} of nominal; tone SNR "
+        + ", ".join(f"{m} {min(st['snr'] for st in states if st['mode'] == m):.1f}.."
+                    f"{max(st['snr'] for st in states if st['mode'] == m):.1f}"
+                    for m in dict.fromkeys(SRV_MODES))
+        + f" dB; first audio after dspcontrol p50 "
+        f"{np.percentile(first, 50):.1f} ms, p95 {np.percentile(first, 95):.1f} ms; "
+        f"waterfall rows a listener in the window {min(out['rows'])}..{max(out['rows'])} "
+        f"(the USB tones in their bins ± 1); peak device memory {peak_mib:.1f} MiB")
+
+    trace_dir = Path(out["profile"]["trace_dir"])
+    try:
+        events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    finally:
+        import shutil
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    kernel_events = [e for e in events if e.get("cat") == "kernel"]
+    kernels_seen = [e.get("name", "") for e in kernel_events]
+    ours = {n: sum(n in k for k in kernels_seen) for n in (
+        "fold_kernel", "adpcm_kernel", "adpcm_seq_kernel", "agc_kernel",
+        "iir_", "squelch_kernel")}
+    # device busy time: the union of the kernels' intervals (µs)
+    busy_us, end = 0.0, -np.inf
+    for ts, dur in sorted((float(e["ts"]), float(e.get("dur", 0))) for e in kernel_events):
+        busy_us += max(0.0, ts + dur - max(ts, end))
+        end = max(end, ts + dur)
+    busy_ms = busy_us / 1e3
+    log(f"[profile] /api/profile?seconds={SRV_PROFILE_S}: {len(events)} trace events, "
+        f"{len(kernels_seen)} CUDA kernel events, hand-written kernels among them "
+        f"{ours}; device busy {busy_ms:.3f} ms of the {SRV_PROFILE_S * 1e3:.0f} ms "
+        f"traced (idle share {1 - busy_ms / (SRV_PROFILE_S * 1e3):.4f})")
+    check(kernels_seen, "7c: the profile holds no CUDA kernel events")
+    log(f"[server] phases 7b and 7c took {time.perf_counter() - t_phase:.1f} s")
+    paths["server"] = {
+        "ms_per_block": float(proc_ms.group(1)), "realtime_factor": float(rt_factor.group(1)),
+        "blocks_in_window": n_win, "host_ms": parts, "peak_mib": peak_mib,
+        "first_audio_ms": {"p50": float(np.percentile(first, 50)),
+                           "p95": float(np.percentile(first, 95))},
+        "audio_rate_of_nominal": [float(rates.min()), float(rates.max())],
+        "tone_snr_db": [min(snrs), max(snrs)], "profile_kernel_events": len(kernels_seen),
+        "profile_device_busy_ms": busy_ms, "profile_hand_kernel_events": ours}
+    del rt
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -952,6 +1543,13 @@ def main() -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    # phase 7's shapes draw their inputs from a generator of their own, so
+    # every earlier case keeps the inputs it had
+    gen_srv = torch.Generator(device=dev)
+    gen_srv.manual_seed(7)
+
+    def gen_for(label):
+        return gen_srv if label.startswith("server") else gen
 
     # -- 3. kernels against their plain versions, main-path shapes -----------
     p_taps = 16
@@ -1015,7 +1613,7 @@ def main() -> int:
         if label == "nfm":           # the same shape as usb
             adpcm_in[label] = adpcm_in["usb"]
             continue
-        state, blocks = adpcm_input(torch, gen, dev, shape, blocks=4)
+        state, blocks = adpcm_input(torch, gen_for(label), dev, shape, blocks=4)
         adpcm_case(label, state, blocks)
         adpcm_in[label] = (state, blocks[0])
     edge = torch.as_tensor(boundary_strides(adpcm.IMA_STEP_TABLE,
@@ -1041,7 +1639,7 @@ def main() -> int:
     iir_in = {}                    # label: (state, x, coefficients) timed in phase 6
     iir_err = 0.0
     for label, shape in IIR_PATH_CASES.items():
-        st, x = iir_input(torch, gen, dev, shape)
+        st, x = iir_input(torch, gen_for(label), dev, shape)
         for co_name, co in iir_coeffs.items():
             (ix_k, iy_k), y_k = iir.first_order_apply(st, *co, x, device=dev)
             (ix_p, iy_p), y_p = iir.first_order_apply_plain(st, *co, x)
@@ -1054,7 +1652,8 @@ def main() -> int:
                 f"{torch.equal(ix_k, ix_p)}")
             check(err <= tol and torch.equal(ix_k, ix_p),
                   f"IIR kernel disagrees ({label}, {co_name}): {err} > {tol}")
-        iir_in[label] = (st, x, iir_coeffs["dc block" if label == "am" else "de-emphasis"])
+        iir_in[label] = (st, x, iir_coeffs["dc block" if label.endswith("am")
+                                           else "de-emphasis"])
 
     # AGC at every path's shape, channel levels spread over 80 dB and random
     # start states; then all-zero rows and silence-to-full-scale steps from
@@ -1063,7 +1662,7 @@ def main() -> int:
     agc_in = {}                    # label: (profile, state, x, chunk)
     agc_err = 0.0
     for label, (pname, shape, chunk) in agc_cases.items():
-        st, x = agc_input(torch, gen, dev, shape)
+        st, x = agc_input(torch, gen_for(label), dev, shape)
         agc_in[label] = (getattr(agc, pname), st, x, chunk)
     step = torch.zeros(8, 2400, device=dev)
     step[2:4, 2200:] = 1.0                         # silence, then full scale
@@ -1120,6 +1719,21 @@ def main() -> int:
     check(tuple(v256.shape) == (6400, 256) and err256 <= tol256,
           f"fold kernel disagrees at M=256: {err256} > {tol256}")
     fold_err = max(fold_err, err256)
+    # and the server's NFM bank (phase 7): M = 128 at 8.192 MS/s
+    proto128 = torch.as_tensor(channelizer.design_prototype(128, p_taps), device=dev)
+    bank128 = torch.flip(proto128.reshape(p_taps, 128), dims=(0, 1)).contiguous()
+    u128 = torch.complex(torch.randn(12800 + p_taps - 1, 128, generator=gen_srv, device=dev),
+                         torch.randn(12800 + p_taps - 1, 128, generator=gen_srv, device=dev))
+    v128 = polyphase_fold(u128, bank128, p_taps, device=dev)
+    v128_plain = polyphase_fold_plain(u128, bank128, p_taps)
+    torch.cuda.synchronize()
+    err128 = float((v128 - v128_plain).abs().max())
+    tol128 = FOLD_RTOL * float(v128_plain.abs().max())
+    log(f"[check] fold u{tuple(u128.shape)} (the server's NFM bank, M=128): "
+        f"max_abs_err {err128:.3e} (tolerance {tol128:.3e})")
+    check(tuple(v128.shape) == (12800, 128) and err128 <= tol128,
+          f"fold kernel disagrees at M=128: {err128} > {tol128}")
+    fold_err = max(fold_err, err128)
 
     # squelch at every path's shape (rows over 40 dB, thresholds near them,
     # random start states, a silent and a half-NaN row), on real input, on
@@ -1156,7 +1770,8 @@ def main() -> int:
                   f"squelch scene: {sk[0].tolist()} {sk[1].tolist()}")
 
     for label, (shape, window) in SQUELCH_PATH_CASES.items():
-        squelch_in[label] = (*squelch_input(torch, gen, dev, shape, window), window)
+        squelch_in[label] = (*squelch_input(torch, gen_for(label), dev, shape, window),
+                             window)
         squelch_case(label, *squelch_in[label])
     squelch_case("real", *squelch_input(torch, gen, dev, (5, 4801), 4801,
                                         torch.float32), 4801)
@@ -1756,6 +2371,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     runtime_paths(torch, dev, smi, paths, launches_by_path)
+    cli_session(smi, paths, adpcm)
+    server_paths(torch, dev, smi, paths, launches_by_path)
 
     agc.agc_apply, adpcm.adpcm_encode = agc_apply, adpcm_encode
     squelch.squelch_apply, adpcm.adpcm_encode_seq = squelch_apply, adpcm_encode_seq
@@ -1861,6 +2478,10 @@ def main() -> int:
                        (u64, bank64), u64.numel() * 8 + bank64.numel() * 4
                        + v64.numel() * 8, 4 * p_taps * v64.numel(), FP32_OPS_PER_S)
     fold64_row["library_ms"] = fold64_lib_ms
+    fold128_row = timed("(12815, 128)", "fold kernel",
+                        lambda u_, b_: polyphase_fold(u_, b_, p_taps, device=dev),
+                        (u128, bank128), u128.numel() * 8 + bank128.numel() * 4
+                        + v128.numel() * 8, 4 * p_taps * v128.numel(), FP32_OPS_PER_S)
     # the IIR at every path's shape, with that path's coefficients
     iir_rows = {}
     for label, (st, x, co) in iir_in.items():
@@ -2060,7 +2681,8 @@ def main() -> int:
          "launches": total("fold.cu"), "launches_by_path": by_path("fold.cu"),
          "max_abs_err": fold_err, "ms": fold_ms, "cold_ms": fold_row["cold_ms"],
          "plain_ms": fold_plain_ms, "bound_ms": fold_bound, "bound_by": fold_by,
-         "library_ms": fold_lib_ms, "by_shape": {"cfg2 (1890, 64)": fold64_row}},
+         "library_ms": fold_lib_ms, "by_shape": {"cfg2 (1890, 64)": fold64_row,
+                                                   "server nfm (12815, 128)": fold128_row}},
         {"name": "adpcm_encode", "route": "cuda",
          "source": "openwebrx_tpu_torch/csrc/adpcm.cu",
          "replaces": "openwebrx_tpu/ops/adpcm.py:131",

@@ -11,11 +11,18 @@ Every entry point takes ``device=`` and defaults to ``"cuda"``.  Without a
 card that default raises: the port never falls back to the CPU on its own.
 ``device="cpu"`` runs the plain PyTorch version of every kernel, which is
 what the CPU tests compare against the JAX reference.
+
+The host side (``core``, ``sources``, ``services``, ``digimodes``, ``aprs``,
+``reporting``, ``web``, ``sdr``, ``native``) is the reference's, copied with
+the package name changed; ``python -m openwebrx_tpu_torch`` serves browser
+listeners from the port's ``DeviceRuntime``.
 """
 
 from __future__ import annotations
 
 import torch
+
+__version__ = "0.1.0"
 
 # cuDNN runs float32 convolutions in TF32 by default, which keeps about three
 # decimal digits: the FIR decimator's F.conv1d would then leave float32

@@ -17,6 +17,7 @@ device's current PyTorch stream, and raises when the return is not 0.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -143,6 +144,15 @@ ADPCM_SEQ = CudaKernel("adpcm_seq.cu", "adpcm_seq_launch",
                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P])
 
 ALL = (FOLD, ADPCM, IIR, AGC, SQUELCH, ADPCM_SEQ)
+
+
+def build_all() -> float:
+    """Build every kernel of ``ALL`` (one nvcc each, all at once; a library
+    already built is reused); return the wall seconds it took."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(ALL)) as pool:
+        list(pool.map(lambda k: k.build(), ALL))
+    return time.perf_counter() - t0
 
 
 def stream_handle(device) -> int:

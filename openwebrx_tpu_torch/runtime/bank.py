@@ -3,7 +3,9 @@
 Counterpart of ``openwebrx_tpu/runtime/bank.py``.  All channels of one
 mode share one ``ClientDemodulatorChain`` run over a leading batch axis of
 ``capacity`` slots; per-slot tuning (offset, squelch, passband, NR) is a
-parameter array, so adding or retuning a listener never rebuilds anything.
+parameter array, so adding or retuning a listener never rebuilds anything;
+each change is made under the program's ``params_lock``, so a dispatch on
+another thread sees all of it or none.
 Inactive slots park at 0 Hz and the host ignores their rows.  Unlike the
 PFB bank (``runtime/channelized.py``) every slot filters the full input
 rate, which serves dials that do not fit a filterbank channel.
@@ -61,40 +63,46 @@ class ChannelBank:
 
     # ------------------------------------------------------------- slots --
     def add_channel(self, offset_hz: float, squelch_db: float = -150.0) -> int:
-        free = np.flatnonzero(~self._active)
-        if len(free) == 0:
-            raise RuntimeError("bank full — grow() first")
-        slot = int(free[0])
-        self._active[slot] = True
-        self._offsets[slot] = offset_hz
-        self._squelch[slot] = squelch_db
-        self._push_params()
-        return slot
+        with self.program.params_lock:
+            free = np.flatnonzero(~self._active)
+            if len(free) == 0:
+                raise RuntimeError("bank full — grow() first")
+            slot = int(free[0])
+            self._active[slot] = True
+            self._offsets[slot] = offset_hz
+            self._squelch[slot] = squelch_db
+            self._push_params()
+            return slot
 
     def remove_channel(self, slot: int):
-        self._active[slot] = False
-        self._offsets[slot] = 0.0
-        self._squelch[slot] = -150.0
-        self._push_params()
+        with self.program.params_lock:
+            self._active[slot] = False
+            self._offsets[slot] = 0.0
+            self._squelch[slot] = -150.0
+            self._push_params()
 
     def retune(self, slot: int, offset_hz: float):
-        self._offsets[slot] = offset_hz
-        self._push_params()
+        with self.program.params_lock:
+            self._offsets[slot] = offset_hz
+            self._push_params()
 
     def set_squelch(self, slot: int, level_db: float):
-        self._squelch[slot] = level_db
-        self._push_params()
+        with self.program.params_lock:
+            self._squelch[slot] = level_db
+            self._push_params()
 
     def set_bandpass(self, slot: int, low_hz: float, high_hz: float):
         """Per-listener passband."""
-        self._low[slot] = low_hz
-        self._high[slot] = high_hz
-        self._push_params()
+        with self.program.params_lock:
+            self._low[slot] = low_hz
+            self._high[slot] = high_hz
+            self._push_params()
 
     def set_nr(self, slot: int, threshold_db: float):
         """Per-listener noise reduction; threshold ≤ −100 dB disables."""
-        self._nr[slot] = threshold_db
-        self._push_params()
+        with self.program.params_lock:
+            self._nr[slot] = threshold_db
+            self._push_params()
 
     @property
     def active_slots(self) -> np.ndarray:

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import abc
 import hashlib
+import threading
 from math import gcd
 
 import numpy as np
@@ -304,7 +305,11 @@ def host_unpack_complex(v) -> np.ndarray:
 
 class Program:
     """A chain planned against (in_spec, block, batch_shape) on one device:
-    owns the streaming state and runs one block per dispatch."""
+    owns the streaming state and runs one block per dispatch.
+
+    ``params_lock`` is held while a dispatch rebuilds the params; a caller
+    that changes several of the chain's parameters from another thread
+    holds it across the change, so that no block sees half of it."""
 
     def __init__(self, chain: Stage, in_spec, block: int, batch_shape=(),
                  device="cuda"):
@@ -315,6 +320,7 @@ class Program:
         self.batch_shape = tuple(batch_shape)
         self.out_spec, self.out_block = chain.plan(in_spec, block)
         self._in_complex = bool(in_spec.format.is_complex)
+        self.params_lock = threading.RLock()
         self._params_cache = chain.params(self.device)
         self._params_ver = chain.params_version()
         self.state = chain.init_state(self.batch_shape, self.device)
@@ -328,11 +334,12 @@ class Program:
     def _params(self):
         """Current params, rebuilt only when a setter bumped the chain's
         params version."""
-        v = self.chain.params_version()
-        if v != self._params_ver:
-            self._params_cache = self.chain.params(self.device)
-            self._params_ver = v
-        return self._params_cache
+        with self.params_lock:
+            v = self.chain.params_version()
+            if v != self._params_ver:
+                self._params_cache = self.chain.params(self.device)
+                self._params_ver = v
+            return self._params_cache
 
     def pack_input(self, x):
         """Host block → what one upload carries, validated: complex samples

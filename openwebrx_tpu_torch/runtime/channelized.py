@@ -16,11 +16,13 @@ stride int32 (n, B/200))`` for ADPCM or int16 audio (n, B) otherwise, and
 ``aux = {"selector.squelch.power_db": (n, windows) float32}``, plus
 ``"wfm.rds_tap.rds"`` (n, B_rds) complex64 in WFM mode.  Params
 (fine shifts, squelch levels, passbands, NR thresholds) are rebuilt and
-uploaded only after a control changed.
+uploaded only after a control changed; a control may change from another
+thread than the one dispatching.
 """
 
 from __future__ import annotations
 
+import threading
 from math import gcd
 
 import numpy as np
@@ -92,6 +94,10 @@ class ChannelizedBank:
             self._chan = np.arange(n, dtype=np.int32)   # slot s ≡ channel s
         self._params_dirty = True
         self._params_cache = None
+        # the control setters (any thread) and the params rebuild of a
+        # dispatch exclude each other: no block sees half a change, and no
+        # change made during a rebuild is lost
+        self._lock = threading.RLock()
         self._prototype = torch.as_tensor(self.prototype, device=self.device)
         self.state = (pfb.channelizer_init(self.m, taps_per_phase,
                                            device=self.device),
@@ -127,30 +133,32 @@ class ChannelizedBank:
         """Activate a slot on the channel containing the given frequency;
         returns the slot index (== channel index in dense mode).  In
         slot-gathered mode several slots may share one PFB channel."""
-        k, fine = self.channel_for(freq_offset_hz)
-        if self.capacity is None:
-            if self._active[k]:
-                raise ValueError(f"PFB channel {k} already occupied")
-            s = k
-        else:
-            free = np.flatnonzero(~self._active)
-            if len(free) == 0:
-                raise ValueError("PFB bank full — all slots taken")
-            s = int(free[0])
-            self._chan[s] = k
-        self._active[s] = True
-        self._fine[s] = fine
-        self._squelch[s] = squelch_db
-        self._params_dirty = True
-        return s
+        with self._lock:
+            k, fine = self.channel_for(freq_offset_hz)
+            if self.capacity is None:
+                if self._active[k]:
+                    raise ValueError(f"PFB channel {k} already occupied")
+                s = k
+            else:
+                free = np.flatnonzero(~self._active)
+                if len(free) == 0:
+                    raise ValueError("PFB bank full — all slots taken")
+                s = int(free[0])
+                self._chan[s] = k
+            self._active[s] = True
+            self._fine[s] = fine
+            self._squelch[s] = squelch_db
+            self._params_dirty = True
+            return s
 
     def release(self, s: int):
-        self._active[s] = False
-        self._fine[s] = 0.0
-        self._squelch[s] = -150.0
-        if self.capacity is not None:
-            self._chan[s] = 0       # parked (inactive slots never conflict)
-        self._params_dirty = True
+        with self._lock:
+            self._active[s] = False
+            self._fine[s] = 0.0
+            self._squelch[s] = -150.0
+            if self.capacity is not None:
+                self._chan[s] = 0       # parked (inactive slots never conflict)
+            self._params_dirty = True
 
     def remove_channel(self, s: int):
         self.release(s)
@@ -158,42 +166,46 @@ class ChannelizedBank:
     def retune(self, s: int, offset_hz: float) -> int:
         """Move a slot to a new frequency; the dial may land in another PFB
         channel.  Returns the (possibly new) slot index."""
-        new_k, fine = self.channel_for(offset_hz)
-        cur_k = int(self._chan[s])
-        if new_k == cur_k:
-            self._fine[s] = fine
+        with self._lock:
+            new_k, fine = self.channel_for(offset_hz)
+            cur_k = int(self._chan[s])
+            if new_k == cur_k:
+                self._fine[s] = fine
+                self._params_dirty = True
+                return s
+            if self.capacity is not None:
+                # gathered mode: channels are shareable, just remap the slot
+                self._chan[s] = new_k
+                self._fine[s] = fine
+                self._params_dirty = True
+                return s
+            # dense mode: the slot index IS the channel index, so move the slot
+            if self._active[new_k]:
+                raise ValueError(f"PFB channel {new_k} already occupied")
+            sq, lo, hi, nr = (self._squelch[s], self._low[s], self._high[s],
+                              self._nr[s])
+            self.release(s)
+            self._active[new_k] = True
+            self._fine[new_k] = fine
+            self._squelch[new_k], self._nr[new_k] = sq, nr
+            self._low[new_k], self._high[new_k] = lo, hi
             self._params_dirty = True
-            return s
-        if self.capacity is not None:
-            # gathered mode: channels are shareable, just remap the slot
-            self._chan[s] = new_k
-            self._fine[s] = fine
-            self._params_dirty = True
-            return s
-        # dense mode: the slot index IS the channel index, so move the slot
-        if self._active[new_k]:
-            raise ValueError(f"PFB channel {new_k} already occupied")
-        sq, lo, hi, nr = (self._squelch[s], self._low[s], self._high[s],
-                          self._nr[s])
-        self.release(s)
-        self._active[new_k] = True
-        self._fine[new_k] = fine
-        self._squelch[new_k], self._nr[new_k] = sq, nr
-        self._low[new_k], self._high[new_k] = lo, hi
-        self._params_dirty = True
-        return new_k
+            return new_k
 
     def set_squelch(self, s: int, level_db: float):
-        self._squelch[s] = level_db
-        self._params_dirty = True
+        with self._lock:
+            self._squelch[s] = level_db
+            self._params_dirty = True
 
     def set_nr(self, s: int, threshold_db: float):
-        self._nr[s] = threshold_db
-        self._params_dirty = True
+        with self._lock:
+            self._nr[s] = threshold_db
+            self._params_dirty = True
 
     def set_bandpass(self, s: int, low_hz: float, high_hz: float):
-        self._low[s], self._high[s] = low_hz, high_hz
-        self._params_dirty = True
+        with self._lock:
+            self._low[s], self._high[s] = low_hz, high_hz
+            self._params_dirty = True
 
     def fits(self, freq_offset_hz: float, low_hz: float, high_hz: float,
              margin: float = 0.4) -> bool:
@@ -216,16 +228,17 @@ class ChannelizedBank:
     def _params(self):
         """Push the control arrays into the chain and rebuild the device
         params only when something changed since the last dispatch."""
-        if self._params_dirty or self._params_cache is None:
-            self.chain.selector.shift.set_rate(-self._fine / self.channel_rate)
-            self.chain.selector.squelch.set_level(self._squelch)
-            self.chain.selector.set_bandpass(self._low, self._high)
-            self.chain.audio.noise_filter.set_threshold(self._nr)
-            idx = torch.as_tensor(self._chan.astype(np.int64),
-                                  device=self.device)
-            self._params_cache = (idx, self.chain.params(self.device))
-            self._params_dirty = False
-        return self._params_cache
+        with self._lock:
+            if self._params_dirty or self._params_cache is None:
+                self.chain.selector.shift.set_rate(-self._fine / self.channel_rate)
+                self.chain.selector.squelch.set_level(self._squelch)
+                self.chain.selector.set_bandpass(self._low, self._high)
+                self.chain.audio.noise_filter.set_threshold(self._nr)
+                idx = torch.as_tensor(self._chan.astype(np.int64),
+                                      device=self.device)
+                self._params_cache = (idx, self.chain.params(self.device))
+                self._params_dirty = False
+            return self._params_cache
 
     # ------------------------------------------------------------- stream --
     def _as_block(self, iq) -> torch.Tensor:

@@ -26,12 +26,14 @@ What differs from the reference is mechanism only:
 * Secondary banks and handles take the block already on the card; the
   secondary FFT rows are ADPCM-encoded there before the fetch.
 * Host pieces (text decoders, subprocess pipelines, file storage, metadata
-  parsers) come in through ``host=``: a namespace carrying the names in
-  ``HOST_NAMES``.  The runtime imports none of them; a handle whose mode
-  needs a name ``host`` lacks raises ``LookupError`` naming it when opened.
-  Channels, banks and the waterfall need nothing from ``host``.
+  parsers) are looked up by the names in ``HOST_NAMES``: from the port's
+  own host modules (``PORT_HOST``, each imported when first used), or from
+  a namespace passed as ``host=``, which overrides them all.  A handle
+  whose mode needs a name the host lacks raises ``LookupError`` naming it
+  when opened.  Channels, banks and the waterfall need nothing from it.
 * The loop's gauges (blocks, proc_block_ms, samples_per_s,
-  realtime_factor) live in ``DeviceRuntime.gauges``.
+  realtime_factor) go to ``core.metrics`` as ``device.<id>.<name>``, as
+  in the reference, and are kept in ``DeviceRuntime.gauges`` too.
 
 A source is duck-typed: the runtime uses its ``id``, ``get_sample_rate()``,
 ``block_size``, ``start()`` and ``read_block(timeout)`` (a (n,) complex
@@ -41,7 +43,7 @@ block or packed (n, 2) float32 / int16 / uint8 pairs, or None).
 from __future__ import annotations
 
 import base64
-import concurrent.futures
+import importlib
 import json
 import logging
 import math
@@ -56,6 +58,7 @@ import numpy as np
 import torch
 
 from openwebrx_tpu_torch import kernels, resolve_device
+from openwebrx_tpu_torch.core.metrics import Metrics
 from openwebrx_tpu_torch.models.analog import WFm
 from openwebrx_tpu_torch.models.digital_voice import DV_DECODERS, DV_FACTORY
 from openwebrx_tpu_torch.models.receiver import (
@@ -88,8 +91,8 @@ BANK_BUCKET = {
 BUCKET_CHAIN_MODE = {"nfm": "nfm", "am": "am", "sam": "sam", "wfm": "wfm",
                      "ssb": "usb", "rawam": "rawam", "usbd": "usbd"}
 
-# The names ``host=`` may carry, each with the module of the reference
-# package (``openwebrx_tpu.<module>``) whose object it stands for
+# The host objects the runtime uses, each with the module (of the port, and
+# of the reference package under the same name) that defines it
 HOST_NAMES = {
     "VaricodeDecoder": "digimodes.psk", "dbpsk_bits": "digimodes.psk",
     "RttyFramer": "digimodes.rtty",
@@ -111,9 +114,28 @@ HOST_NAMES = {
 }
 
 
+class _PortHost:
+    """The port's own objects under ``HOST_NAMES``: ``PORT_HOST.<name>``
+    imports ``openwebrx_tpu_torch.<module>`` on first use (a module entry,
+    such as ``hdradio``, is the module itself)."""
+
+    def __getattr__(self, name):
+        module = HOST_NAMES.get(name)
+        if module is None:
+            raise AttributeError(name)
+        mod = importlib.import_module(f"openwebrx_tpu_torch.{module}")
+        return mod if module.endswith("." + name) else getattr(mod, name)
+
+
+PORT_HOST = _PortHost()
+
+
 def host_names(host, *names, what: str):
-    """The objects ``names`` from the ``host`` namespace; LookupError naming
-    every missing one (``what`` says who needs them)."""
+    """The objects ``names`` from the ``host`` namespace (``PORT_HOST``
+    when None); LookupError naming every missing one (``what`` says who
+    needs them)."""
+    if host is None:
+        host = PORT_HOST
     missing = [n for n in names if getattr(host, n, None) is None]
     if missing:
         raise LookupError(f"{what} needs {', '.join(missing)} from "
@@ -796,7 +818,7 @@ class DeviceRuntime:
                  service_delivery_seconds: float = 0.3, host=None,
                  device="cuda"):
         self.device = resolve_device(device)
-        self.host = host
+        self.host = PORT_HOST if host is None else host
         # background service results are delivered in batches of about
         # this much signal (delivery_stride of the 'pfb:' banks)
         self.service_delivery_seconds = float(service_delivery_seconds)
@@ -1181,11 +1203,9 @@ class DeviceRuntime:
         inside a streamed block; returns the seconds it took."""
         if self.device.type != "cuda":
             return 0.0
-        t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(len(kernels.ALL)) as pool:
-            list(pool.map(lambda k: k.build(), kernels.ALL))
+        seconds = kernels.build_all()
         self.kernels_built_at = time.perf_counter()
-        return self.kernels_built_at - t0
+        return seconds
 
     def start(self):
         with self._lock:
@@ -1219,6 +1239,12 @@ class DeviceRuntime:
         # was built on
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+        m = Metrics.shared()
+        prefix = f"device.{self.source.id}"
+        m_blocks = m.counter(f"{prefix}.blocks")
+        m_rate = m.direct(f"{prefix}.samples_per_s")
+        m_proc = m.direct(f"{prefix}.proc_block_ms")
+        m_rt = m.direct(f"{prefix}.realtime_factor")
         rate = float(self.source.get_sample_rate() or 0)
         ema_ms = None
         pending = deque()
@@ -1250,13 +1276,17 @@ class DeviceRuntime:
             ema_ms = dt_ms if ema_ms is None else ema_ms * 0.9 + dt_ms * 0.1
             g = self.gauges
             g["blocks"] += 1
+            m_blocks.inc()
             g["proc_block_ms"] = round(ema_ms, 3)
+            m_proc.set(g["proc_block_ms"])
             if ema_ms > 0:
                 # smoothed, so one idle block reports no fantasy rate
                 g["samples_per_s"] = round(len(block) / (ema_ms / 1e3))
+                m_rate.set(g["samples_per_s"])
                 if rate:
                     g["realtime_factor"] = round(
                         len(block) / (ema_ms / 1e3) / rate, 2)
+                    m_rt.set(g["realtime_factor"])
         drain_all()
 
     def _process_block(self, block):

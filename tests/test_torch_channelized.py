@@ -10,6 +10,7 @@ import ast
 import pathlib
 import subprocess
 import sys
+import threading
 
 import jax
 import numpy as np
@@ -333,17 +334,77 @@ class TestAnalogBanks:
             assert tone_snr(yt[s].astype(np.float32), fa, rate) > 15, (mode, s)
 
 
+def _leaves(tree):
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+class TestControlsFromAnotherThread:
+    def test_no_control_change_is_lost(self):
+        """A listener's controls change on the server's thread while the
+        device loop rebuilds the bank's params for a dispatch.  In each of
+        40 rounds four rebuilding threads run against one setter, with the
+        interpreter switching threads every microsecond; once they stop,
+        the params in use must equal params rebuilt from the controls (a
+        change made during a rebuild would otherwise be lost until the
+        next change)."""
+        import torch
+        bank = ChannelizedBank(FS, M, mode="usb", capacity=4, target_seconds=0.05,
+                               device="cpu")
+        slots = [bank.assign(k * FS / M + 500.0) for k in range(1, 5)]
+        old = sys.getswitchinterval()
+        stale = 0
+        for rnd in range(40):
+            stop = threading.Event()
+
+            def rebuild():
+                while not stop.is_set():
+                    bank._params()
+
+            threads = [threading.Thread(target=rebuild) for _ in range(4)]
+            sys.setswitchinterval(1e-6)
+            try:
+                for th in threads:
+                    th.start()
+                for i in range(200):
+                    s = slots[i % 4]
+                    bank.set_squelch(s, -100.0 - (i + rnd) % 37)
+                    bank.retune(s, (1 + i % 4) * FS / M + 100.0 + (7 * i + rnd) % 300)
+            finally:
+                stop.set()
+                for th in threads:
+                    th.join(timeout=30)
+                sys.setswitchinterval(old)
+            assert not any(th.is_alive() for th in threads)
+            in_use = _leaves(bank._params())
+            bank._params_dirty = True
+            fresh = _leaves(bank._params())
+            assert len(in_use) == len(fresh)
+            stale += not all(
+                torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else np.array_equal(np.asarray(a), np.asarray(b))
+                for a, b in zip(in_use, fresh))
+        assert stale == 0, f"{stale} of 40 rounds ended with a change lost"
+
+
 class TestGuards:
     def test_no_jax_imports(self):
-        """No module of the port, nor chip_smoke.py, profile_torch_bank.py
-        or compare_bank_ms.py, imports jax or the JAX package (an AST scan:
-        this process has jax loaded already)."""
+        """No module of the port (its host modules too), nor chip_smoke.py,
+        profile_torch_bank.py or compare_bank_ms.py, imports jax or the JAX
+        package (an AST scan: this process has jax loaded already)."""
         files = sorted((REPO / "openwebrx_tpu_torch").rglob("*.py"))
         for rel in ("ops/iir.py", "ops/squelch.py", "ops/adpcm.py", "ops/fftops.py",
                     "ops/convert.py", "ops/timing.py", "ops/fsk.py",
                     "models/stages.py", "models/receiver.py", "models/secondary.py",
                     "models/fax.py", "models/digital_voice.py",
-                    "runtime/chain.py", "runtime/bank.py", "runtime/device.py"):
+                    "runtime/chain.py", "runtime/bank.py", "runtime/device.py",
+                    "core/config.py", "core/feature.py", "sources/file.py",
+                    "aprs/parser.py", "digimodes/psk.py", "reporting/mqtt.py",
+                    "services/engine.py", "web/server.py", "web/settings.py",
+                    "web/connection.py", "native.py", "sdr.py", "__main__.py"):
             assert REPO / "openwebrx_tpu_torch" / rel in files, rel
         files += [REPO / "chip_smoke.py", REPO / "profile_torch_bank.py",
                   REPO / "compare_bank_ms.py"]
