@@ -13,7 +13,8 @@ Phases (any failure raises and the script exits non-zero):
    (one ``nvcc`` per build, all started together);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the full-width paths give it: the polyphase fold (M = 1024, config #2's
-   M = 64 and configs #3 and #6's M = 256) and the first-order IIR within stated tolerances; the ADPCM
+   M = 64, configs #3 and #6's M = 256, the server's M = 128 and a rank's
+   time slice of config #5 over POD_RANKS ranks) and the first-order IIR within stated tolerances; the ADPCM
    encoder (the fused ``adpcm_encode`` at every path's shape over four
    blocks with the state carried, strides built on every boundary of its
    index estimate, and ``encode_strides``) with bytes, stride states and
@@ -25,7 +26,9 @@ Phases (any failure raises and the script exits non-zero):
    SQUELCH_DB_TOL and gates, hang and output bit-identical wherever the
    power is not that close to the level; the exact IMA row encoder
    (``adpcm_encode_seq``) bit-identical at the waterfall's shape, on 16
-   rows, on full-scale square waves and from random start states;
+   rows, on full-scale square waves and from random start states; phase
+   8's per-rank shapes (squelch and AGC at (M / POD_RANKS, 600), and the
+   ADPCM encoder there too, though 8b runs int16 audio) among them;
 4. small banks (M=64) on the card against the same banks on the CPU (plain
    versions), on the same input, in every mode: usb, nfm, am, rawam, sam
    and wfm (gathered, at 384 kHz slices); the waterfall (``FftChain``,
@@ -85,6 +88,22 @@ Phases (any failure raises and the script exits non-zero):
    first-audio latency from ``dspcontrol`` (p50, p95) and peak memory;
    (c) ``/api/profile`` on the running server returns a trace with CUDA
    kernel events.
+8. config #5's USB bank sharded over ranks through
+   ``openwebrx_tpu_torch.parallel`` (run after phase 7, inside phase 5's
+   record of the kernels' shapes): (a) one rank over NCCL in this process:
+   ``DistributedReceiver`` (ADPCM) against the plain ``ChannelizedBank``
+   on the same blocks, bytes and stride states identical, and
+   ``shard_channelized_bank`` + ``gather_channels`` identical too; tones,
+   launches, ms/block beside the plain bank's, the collectives and the
+   re-shard timed alone (at world size 1 they cross no link); (b)
+   POD_RANKS worker processes (``chip_smoke.py --pod-worker``; on one card
+   both on it over gloo through host memory, since NCCL takes one rank per
+   card; with more cards NCCL, a card each), each fed only its slab of
+   every block (int16 audio): every channel owned once, the ranks'
+   checksums equal, the gathered audio within POD_AUDIO_LSB of one bank
+   here, tones, each rank's launches and kernel shapes, its ms/block and
+   its collectives' time.  ``python3 chip_smoke.py --pod-ranks 2 4`` runs
+   8b alone at those world sizes (on a machine with as many cards: NCCL).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -92,6 +111,7 @@ name/power-limit line, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ast
 import concurrent.futures
 import json
 import logging
@@ -150,16 +170,27 @@ WF_SIZE = 4096
 SEQ_ROW = 4112
 SEQ_SHORT_ROW = 2064
 
+# Phase 8: config #5's USB bank (M = 1024 at 49.152 MS/s, 0.05 s blocks,
+# every channel assigned) sharded over ranks through openwebrx_tpu_torch.
+# parallel: 8a one rank over NCCL in this process (ADPCM); 8b POD_RANKS
+# worker processes (int16 audio, as the cluster's dry run), each fed only
+# its slab of every block
+POD_RANKS = 2
+POD_BLOCKS = WARMUP_BLOCKS + 21
+POD_AUDIO_LSB = 4      # int16, the ranks' channels vs one bank: cuFFT batches of T/n rows
+POD_TIMEOUT_S = 300    # the workers' whole run, start-up included
+
 # The shapes the full-width paths give the AGC (profile, x, chunk), the
-# ADPCM encoders (samples) and the squelch (x, window), as phases 5 and 7
-# record them (the server's SSB and AM banks share config #3's AGC and
+# ADPCM encoders (samples) and the squelch (x, window), as phases 5, 7 and
+# 8 record them (the server's SSB and AM banks share config #3's AGC and
 # squelch shapes)
 AGC_PATH_CASES = {"usb": ("SLOW", (M, 600), 50), "nfm": ("FAST", (M, 2400), 50),
                   "am": ("SLOW", (2 * M, 600), 50), "cfg1": ("FAST", (4800,), 50),
                   "cfg2": ("SLOW", (64, 600), 50), "cfg2 edge": ("SLOW", (16, 600), 50),
                   "cfg4": ("SLOW", (16, 1536), 48), "cfg3": ("SLOW", (64, 2400), 50),
                   "cfg6": ("SLOW", (256, 2400), 50), "cfg6 edge": ("SLOW", (16, 2400), 50),
-                  "server nfm": ("FAST", (64, 9600), 50)}
+                  "server nfm": ("FAST", (64, 9600), 50),
+                  "pod2": ("SLOW", (M // POD_RANKS, 600), 50)}
 ADPCM_PATH_SHAPES = {"usb": (M, 600), "nfm": (M, 600), "am": (2 * M, 600),
                      "wfm": (128, 9600), "cfg1": (1200,), "cfg2": (64, 600),
                      "cfg2 edge": (16, 600), "cfg6": (256, 2400), "cfg6 edge": (16, 2400),
@@ -169,7 +200,8 @@ SQUELCH_PATH_CASES = {"usb": ((M, 600), 600), "nfm": ((M, 2400), 2400),
                       "cfg1": ((4800,), 2400), "cfg2": ((64, 600), 600),
                       "cfg2 edge": ((16, 600), 600), "cfg4": ((16, 1536), 768),
                       "cfg3": ((64, 2400), 800), "cfg6": ((256, 2400), 800),
-                      "cfg6 edge": ((16, 2400), 800), "server nfm": ((64, 9600), 3200)}
+                      "cfg6 edge": ((16, 2400), 800), "server nfm": ((64, 9600), 3200),
+                      "pod2": ((M // POD_RANKS, 600), 600)}
 # one waterfall row a block; two at 8.192 MS/s (the threaded run)
 ADPCM_SEQ_PATH_SHAPES = {(1, SEQ_ROW), (2, SEQ_ROW)}
 # the first-order IIR (x) on the paths that run one: the NFM and WFM
@@ -1495,6 +1527,296 @@ def server_paths(torch, dev, smi, paths, launches_by_path):
     torch.cuda.empty_cache()
 
 
+def pod_blocks(torch, dev, block):
+    """Phase 8's input: POD_BLOCKS seeded blocks of config #5 (noise plus a
+    USB tone on each of TONE_CHANNELS), made on the card from a generator of
+    their own: every process of the phase makes the same blocks."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(80)
+    return seeded_blocks(torch, gen, dev, FS, block, POD_BLOCKS, pod_carriers(), "usb")
+
+
+def pod_carriers():
+    return [float((i - M // 2) * FS / M) for i in TONE_CHANNELS]
+
+
+def pod_tone_channels():
+    """The channels of ``pod_carriers`` (a dense bank's slots)."""
+    return [(i - M // 2) % M for i in TONE_CHANNELS]
+
+
+def pod_bank(dev, compression):
+    """Config #5's USB bank: M channels, every one assigned."""
+    from openwebrx_tpu_torch.runtime.channelized import ChannelizedBank
+    bank = ChannelizedBank(FS, M, mode="usb", compression=compression,
+                           target_seconds=0.05, device=dev)
+    for i in range(M):
+        bank.assign(float((i - M // 2) * FS / M))
+    return bank
+
+
+def record_shapes(seen):
+    """Wrap the kernels' wrappers where the stages call them (through their
+    modules), each adding the shapes it is handed to its set in ``seen``
+    (keys agc, squelch, adpcm, seq, iir and fold; the AGC's profile by
+    name) → a function that unwraps them."""
+    from openwebrx_tpu_torch.ops import adpcm, agc, channelizer, iir, squelch
+    saved = (agc.agc_apply, squelch.squelch_apply, adpcm.adpcm_encode,
+             adpcm.adpcm_encode_seq, iir.first_order_apply, channelizer.polyphase_fold)
+    agc_apply, squelch_apply, adpcm_encode, adpcm_encode_seq, first_order_apply, fold = saved
+    names = {id(agc.SLOW): "SLOW", id(agc.FAST): "FAST"}
+
+    def agc_recorded(state, profile, x, chunk=agc.CHUNK, device="cuda"):
+        seen["agc"].add((names[id(profile)], tuple(x.shape), chunk))
+        return agc_apply(state, profile, x, chunk, device=device)
+
+    def squelch_recorded(state, level_db, x, window, hang_windows=2):
+        seen["squelch"].add((tuple(x.shape), window))
+        return squelch_apply(state, level_db, x, window, hang_windows)
+
+    def adpcm_recorded(state, x):
+        seen["adpcm"].add(tuple(x.shape))
+        return adpcm_encode(state, x)
+
+    def seq_recorded(state, x):
+        seen["seq"].add(tuple(x.shape))
+        return adpcm_encode_seq(state, x)
+
+    def iir_recorded(state, b0, b1, a1, x, device="cuda"):
+        seen["iir"].add(tuple(x.shape))
+        return first_order_apply(state, b0, b1, a1, x, device=device)
+
+    def fold_recorded(u, bank_t, p_taps, device="cuda"):
+        seen["fold"].add(tuple(u.shape))
+        return fold(u, bank_t, p_taps, device=device)
+
+    (agc.agc_apply, squelch.squelch_apply, adpcm.adpcm_encode, adpcm.adpcm_encode_seq,
+     iir.first_order_apply, channelizer.polyphase_fold) = (
+        agc_recorded, squelch_recorded, adpcm_recorded, seq_recorded, iir_recorded,
+        fold_recorded)
+
+    def restore():
+        (agc.agc_apply, squelch.squelch_apply, adpcm.adpcm_encode, adpcm.adpcm_encode_seq,
+         iir.first_order_apply, channelizer.polyphase_fold) = saved
+    return restore
+
+
+def shape_record():
+    return {k: set() for k in ("agc", "squelch", "adpcm", "seq", "iir", "fold")}
+
+
+def pod_worker(rank, world, port, out_dir, backend) -> int:
+    """Phase 8b's rank ``rank`` of ``world`` (``chip_smoke.py --pod-worker
+    RANK WORLD PORT DIR BACKEND``): joins the cluster, feeds its slab of
+    every block to a ``DistributedReceiver`` over config #5's bank (int16
+    audio), times the collectives, writes its channels' audio to
+    DIR/rank<R>.npy and prints one JSON line for the parent."""
+    import torch
+    import torch.distributed as dist
+    from openwebrx_tpu_torch import kernels
+    from openwebrx_tpu_torch.parallel import cluster as pcluster
+
+    rank, world = int(rank), int(world)
+    dev = pcluster.rank_device("cuda", rank)        # card rank % cards
+    cluster = pcluster.init_cluster(f"127.0.0.1:{port}", world, rank,
+                                    timeout=POD_TIMEOUT_S, device=dev, backend=backend)
+    try:
+        seen = shape_record()
+        restore = record_shapes(seen)
+        rx = pcluster.DistributedReceiver(pod_bank(dev, "none"), cluster, device=dev)
+        slabs = [b[rank * rx.slab:(rank + 1) * rx.slab].contiguous()
+                 for b in pod_blocks(torch, dev, rx.bank.block)]
+        results, wall, launches, peak = drive(
+            f"pod{world} rank {rank}", lambda x: (rx.dispatch_local(x),),
+            rx.complete_local, slabs, kernels, torch, dev)
+        restore()
+        rep = report(f"pod{world} rank {rank}", nvidia_smi(), wall,
+                     POD_BLOCKS - WARMUP_BLOCKS, rx.bank.block, FS, peak)
+        coll_ms = rx.time_collectives() * 1e3
+        reshard_ms = rx.time_reshard() * 1e3
+        np.save(Path(out_dir) / f"rank{rank}.npy",
+                np.concatenate([y for _, y, _ in results], axis=-1))
+        print(json.dumps({
+            "pod_rank": rank, "channels": [int(rx.channels[0]), int(rx.channels[-1]) + 1],
+            "checksums": [c for _, _, c in results], "launches": launches,
+            "device": str(dev), "backend": dist.get_backend(), "collective_ms": coll_ms,
+            "reshard_ms": reshard_ms, **rep,
+            "shapes": {k: sorted(map(repr, v)) for k, v in seen.items()}}),
+            flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def pod_one_rank(torch, dev, smi, paths, launches_by_path):
+    """Phase 8a: config #5's bank at world size 1 over NCCL in this process,
+    through ``DistributedReceiver`` (ADPCM) against the plain bank, bytes
+    and stride states identical, and through ``shard_channelized_bank``;
+    adds the path's report and launches."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from openwebrx_tpu_torch import kernels
+    from openwebrx_tpu_torch.ops import adpcm
+    from openwebrx_tpu_torch.parallel.cluster import DistributedReceiver, init_cluster
+    from openwebrx_tpu_torch.parallel.pod import gather_channels, shard_channelized_bank
+
+    n_timed = POD_BLOCKS - WARMUP_BLOCKS
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0,
+                            timeout=timedelta(seconds=POD_TIMEOUT_S))
+    try:
+        cluster = init_cluster(num_processes=1, device=dev)
+        check(cluster == type(cluster)(0, 1, 1, 1), f"pod1: cluster {cluster}")
+        rx = DistributedReceiver(pod_bank(dev, "adpcm"), cluster, device=dev)
+        blocks = pod_blocks(torch, dev, rx.bank.block)
+        check(rx.slab == rx.bank.block and list(rx.channels) == list(range(M)),
+              f"pod1: slab {rx.slab}, channels {rx.channels[:3]}..")
+        results, wall, launches, peak = drive(
+            "pod1", lambda x: (rx.dispatch_local(x),), rx.complete_local, blocks,
+            kernels, torch, dev)
+        launches_by_path["pod1"] = launches
+        check_launches("pod1", launches, {k: v * POD_BLOCKS for k, v in launches_per_block(
+            fold=1, adpcm_=1, agc_=1, squelch_=1).items()})
+        paths["pod1"] = report("pod1", smi, wall, n_timed, rx.bank.block, FS, peak)
+        plain = pod_bank(dev, "adpcm")
+        plain_out, plain_wall, _, _ = drive("pod1 plain bank", plain.dispatch,
+                                            plain.fetch, blocks, kernels, torch, dev)
+        paths["pod1"]["plain_ms_per_block"] = plain_wall / n_timed * 1e3
+        same = all(np.array_equal(r[1][0], p[0][0]) and np.array_equal(r[1][1], p[0][1])
+                   for r, p in zip(results, plain_out))
+        log(f"[pod1] DistributedReceiver vs the plain ChannelizedBank, "
+            f"{POD_BLOCKS} blocks: ADPCM bytes and stride states identical = {same}")
+        check(same, "pod1: DistributedReceiver differs from the plain bank")
+        sbank = pod_bank(dev, "adpcm")
+        run, state = shard_channelized_bank(sbank, rx.mesh)
+        same = True
+        for x, (py, _) in zip(blocks, plain_out):
+            state, y, _ = run(state, x)
+            g = [t.cpu().numpy() for t in gather_channels(y, rx.mesh)]
+            same = same and np.array_equal(g[0], py[0]) and np.array_equal(g[1], py[1])
+        log(f"[pod1] shard_channelized_bank + gather_channels vs the plain bank: "
+            f"identical = {same}")
+        check(same, "pod1: shard_channelized_bank differs from the plain bank")
+        for k in pod_tone_channels():
+            audio = decode_channel([(y[0][k], y[1][k]) for _, y, _ in results], adpcm)
+            snr = tone_snr(audio[len(audio) // 2:].astype(np.float32) / 32767,
+                           TONE_AUDIO_HZ, 12000.0)
+            log(f"[pod1] slot {k}: USB tone SNR {snr:.1f} dB (minimum {TONE_SNR_MIN_DB})")
+            check(snr > TONE_SNR_MIN_DB, f"pod1: channel {k} tone SNR {snr:.1f} dB")
+        coll_ms, reshard_ms = rx.time_collectives() * 1e3, rx.time_reshard() * 1e3
+        paths["pod1"].update(collective_ms=coll_ms, reshard_ms=reshard_ms,
+                             transport="nccl, world size 1")
+        log(f"[pod1] {smi}: {paths['pod1']['ms_per_block']:.3f} ms/block through "
+            f"DistributedReceiver, {paths['pod1']['plain_ms_per_block']:.3f} through "
+            f"the plain bank; collectives alone {coll_ms:.5f} ms a step, the "
+            f"re-shard alone {reshard_ms:.5f} ms (NCCL at world size 1: no link, "
+            f"the collectives copy within the card)")
+        del rx, plain, sbank, run, state, results, plain_out, blocks
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def pod_ranks(torch, dev, smi, paths, launches_by_path, seen, world=POD_RANKS):
+    """Phase 8b: ``world`` worker processes (``chip_smoke.py --pod-worker``;
+    on fewer cards than ranks all on this card over gloo through host
+    memory, else NCCL, a card each), each fed only its slab of config #5's
+    blocks, against one bank here: every channel owned once, the ranks'
+    checksums equal, the gathered audio within POD_AUDIO_LSB, tones, each
+    rank's launches and shapes.  Adds the path's report and launches (summed
+    over the ranks), and the workers' AGC and squelch shapes to ``seen``."""
+    from openwebrx_tpu_torch import kernels
+
+    n_timed = POD_BLOCKS - WARMUP_BLOCKS
+    single = pod_bank(dev, "none")
+    blocks = pod_blocks(torch, dev, single.block)
+    single_out, single_wall, _, _ = drive("pod single bank", single.dispatch,
+                                          single.fetch, blocks, kernels, torch, dev)
+    ref = np.concatenate([y for y, _ in single_out], axis=-1)
+    ref_checks = [float(np.abs(y.astype(np.float64)).sum()) for y, _ in single_out]
+    del single, single_out, blocks
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    nccl = cards >= world
+    backend = "nccl" if nccl else "gloo"
+    transport = ("NCCL, one rank per card" if nccl else
+                 f"gloo through host memory: {cards} card(s) for {world} ranks; "
+                 "NCCL takes one rank per card")
+    out_dir = ROOT / "build" / "pod"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--pod-worker", str(r),
+         str(world), str(port), str(out_dir), backend], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=max(1.0, POD_TIMEOUT_S - (time.perf_counter() - t0)))
+            for line in out.splitlines():
+                if not line.startswith("{"):
+                    log(f"[pod{world} worker {r}] {line}")
+            check(p.returncode == 0, f"pod{world}: worker {r} exited "
+                  f"{p.returncode}: {err[-3000:]}")
+            outs.append(json.loads([ln for ln in out.splitlines()
+                                    if ln.startswith('{"pod_rank"')][-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    label = f"pod{world}"
+    owned = sorted(c for o in outs for c in range(*o["channels"]))
+    check(owned == list(range(M)), f"{label}: channels owned {owned[:4]}.. of {M}")
+    check(all(o["checksums"] == outs[0]["checksums"] for o in outs),
+          f"{label}: the ranks' checksums differ")
+    rel = max(abs(a - b) / b for a, b in zip(outs[0]["checksums"], ref_checks))
+    check(rel <= 1e-3, f"{label}: checksum {rel:.2e} off the single bank's")
+    got = np.concatenate([np.load(out_dir / f"rank{o['pod_rank']}.npy")
+                          for o in sorted(outs, key=lambda o: o["channels"][0])])
+    check(got.shape == ref.shape and got.dtype == np.int16,
+          f"{label}: audio {got.shape} {got.dtype}, single bank {ref.shape}")
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    log(f"[{label}] gathered int16 audio vs the single bank on the card: max diff "
+        f"{int(diff.max())} LSB (tolerance {POD_AUDIO_LSB}), mean {diff.mean():.5f}; "
+        f"checksums equal on every rank, {rel:.2e} off the single bank's")
+    check(diff.max() <= POD_AUDIO_LSB, f"{label}: audio differs from the single bank")
+    for k in pod_tone_channels():
+        snr = tone_snr(got[k, got.shape[1] // 2:].astype(np.float32) / 32767,
+                       TONE_AUDIO_HZ, 12000.0)
+        log(f"[{label}] channel {k}: USB tone SNR {snr:.1f} dB (minimum {TONE_SNR_MIN_DB})")
+        check(snr > TONE_SNR_MIN_DB, f"{label}: channel {k} tone SNR {snr:.1f} dB")
+    for o in outs:
+        check_launches(f"{label} rank {o['pod_rank']}", o["launches"],
+                       {k: v * POD_BLOCKS for k, v in launches_per_block(
+                           fold=1, agc_=1, squelch_=1).items()})
+        sh = {k: {ast.literal_eval(v) for v in vs} for k, vs in o["shapes"].items()}
+        check(sh["fold"] == {(2400 // world + 15, M)}
+              and not (sh["adpcm"] or sh["seq"] or sh["iir"]),
+              f"{label}: shapes {sh}")
+        seen["agc"] |= sh["agc"]
+        seen["squelch"] |= sh["squelch"]
+    launches_by_path[label] = {k: sum(o["launches"][k] for o in outs)
+                               for k in outs[0]["launches"]}
+    paths[label] = {"ms_per_block_by_rank": [o["ms_per_block"] for o in outs],
+                    "single_ms_per_block": single_wall / n_timed * 1e3,
+                    "collective_ms_by_rank": [o["collective_ms"] for o in outs],
+                    "reshard_ms_by_rank": [o["reshard_ms"] for o in outs],
+                    "peak_mib_by_rank": [o["peak_mib"] for o in outs],
+                    "transport": transport, "backend": backend}
+    log(f"[{label}] {smi}: {world} ranks ({transport}) on "
+        f"{sorted({o['device'] for o in outs})}: ms/block "
+        f"{[round(o['ms_per_block'], 3) for o in outs]} against "
+        f"{paths[label]['single_ms_per_block']:.3f} for the single bank here; "
+        f"collectives alone {[round(o['collective_ms'], 5) for o in outs]} ms a step, "
+        f"the re-shard alone {[round(o['reshard_ms'], 5) for o in outs]} ms "
+        f"({'NCCL over the cards link' if nccl else 'gloo: host copies and TCP on one machine, not NCCL'})")
+    log(f"[{label}] took {time.perf_counter() - t0:.1f} s with its workers' start-up")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1547,9 +1869,13 @@ def main() -> int:
     # every earlier case keeps the inputs it had
     gen_srv = torch.Generator(device=dev)
     gen_srv.manual_seed(7)
+    # ... and so do phase 8's
+    gen_pod = torch.Generator(device=dev)
+    gen_pod.manual_seed(8)
 
     def gen_for(label):
-        return gen_srv if label.startswith("server") else gen
+        return (gen_srv if label.startswith("server")
+                else gen_pod if label.startswith("pod") else gen)
 
     # -- 3. kernels against their plain versions, main-path shapes -----------
     p_taps = 16
@@ -1616,6 +1942,10 @@ def main() -> int:
         state, blocks = adpcm_input(torch, gen_for(label), dev, shape, blocks=4)
         adpcm_case(label, state, blocks)
         adpcm_in[label] = (state, blocks[0])
+    # a rank's channels over POD_RANKS ranks (phase 8b runs int16 audio,
+    # so no path launches the encoder at this shape)
+    state, blocks = adpcm_input(torch, gen_pod, dev, (M // POD_RANKS, 600), blocks=4)
+    adpcm_case("pod2 rank", state, blocks)
     edge = torch.as_tensor(boundary_strides(adpcm.IMA_STEP_TABLE,
                                             adpcm.STATE_STRIDE), device=dev)
     adpcm_case("boundary strides", adpcm.adpcm_init((edge.shape[0],), device=dev),
@@ -1689,51 +2019,36 @@ def main() -> int:
           f"AGC scene: zero rows at max gain, steps armed, pulses run out: "
           f"{g_s.tolist()} {h_s.tolist()}")
 
-    # the fold at config #2's listener bank: M = 64, 1875-sample channel block
-    proto64 = torch.as_tensor(channelizer.design_prototype(64, p_taps), device=dev)
-    bank64 = torch.flip(proto64.reshape(p_taps, 64), dims=(0, 1)).contiguous()
-    u64 = torch.complex(torch.randn(1875 + p_taps - 1, 64, generator=gen, device=dev),
-                        torch.randn(1875 + p_taps - 1, 64, generator=gen, device=dev))
-    v64 = polyphase_fold(u64, bank64, p_taps, device=dev)
-    v64_plain = polyphase_fold_plain(u64, bank64, p_taps)
-    torch.cuda.synchronize()
-    err64 = float((v64 - v64_plain).abs().max())
-    tol64 = FOLD_RTOL * float(v64_plain.abs().max())
-    log(f"[check] fold u{tuple(u64.shape)} (config #2, M=64): max_abs_err "
-        f"{err64:.3e} (tolerance {tol64:.3e})")
-    check(tuple(v64.shape) == (1875, 64) and err64 <= tol64,
-          f"fold kernel disagrees at M=64: {err64} > {tol64}")
-    fold_err = max(fold_err, err64)
-    # and at configs #3 and #6: M = 256 at 8.192 MS/s, 6400-sample channel block
-    proto256 = torch.as_tensor(channelizer.design_prototype(256, p_taps), device=dev)
-    bank256 = torch.flip(proto256.reshape(p_taps, 256), dims=(0, 1)).contiguous()
-    u256 = torch.complex(torch.randn(6400 + p_taps - 1, 256, generator=gen, device=dev),
-                         torch.randn(6400 + p_taps - 1, 256, generator=gen, device=dev))
-    v256 = polyphase_fold(u256, bank256, p_taps, device=dev)
-    v256_plain = polyphase_fold_plain(u256, bank256, p_taps)
-    torch.cuda.synchronize()
-    err256 = float((v256 - v256_plain).abs().max())
-    tol256 = FOLD_RTOL * float(v256_plain.abs().max())
-    log(f"[check] fold u{tuple(u256.shape)} (configs #3 and #6, M=256): "
-        f"max_abs_err {err256:.3e} (tolerance {tol256:.3e})")
-    check(tuple(v256.shape) == (6400, 256) and err256 <= tol256,
-          f"fold kernel disagrees at M=256: {err256} > {tol256}")
-    fold_err = max(fold_err, err256)
-    # and the server's NFM bank (phase 7): M = 128 at 8.192 MS/s
-    proto128 = torch.as_tensor(channelizer.design_prototype(128, p_taps), device=dev)
-    bank128 = torch.flip(proto128.reshape(p_taps, 128), dims=(0, 1)).contiguous()
-    u128 = torch.complex(torch.randn(12800 + p_taps - 1, 128, generator=gen_srv, device=dev),
-                         torch.randn(12800 + p_taps - 1, 128, generator=gen_srv, device=dev))
-    v128 = polyphase_fold(u128, bank128, p_taps, device=dev)
-    v128_plain = polyphase_fold_plain(u128, bank128, p_taps)
-    torch.cuda.synchronize()
-    err128 = float((v128 - v128_plain).abs().max())
-    tol128 = FOLD_RTOL * float(v128_plain.abs().max())
-    log(f"[check] fold u{tuple(u128.shape)} (the server's NFM bank, M=128): "
-        f"max_abs_err {err128:.3e} (tolerance {tol128:.3e})")
-    check(tuple(v128.shape) == (12800, 128) and err128 <= tol128,
-          f"fold kernel disagrees at M=128: {err128} > {tol128}")
-    fold_err = max(fold_err, err128)
+    def fold_case(label, m, rows, g):
+        """The fold at a path's shape, M = ``m`` channels and ``rows`` output
+        rows (the channel block), its input from generator ``g``: the kernel
+        against the plain version → (u, bank, plain v)."""
+        nonlocal fold_err
+        proto_m = torch.as_tensor(channelizer.design_prototype(m, p_taps), device=dev)
+        bank_m = torch.flip(proto_m.reshape(p_taps, m), dims=(0, 1)).contiguous()
+        u_m = torch.complex(torch.randn(rows + p_taps - 1, m, generator=g, device=dev),
+                            torch.randn(rows + p_taps - 1, m, generator=g, device=dev))
+        v_m = polyphase_fold(u_m, bank_m, p_taps, device=dev)
+        v_m_plain = polyphase_fold_plain(u_m, bank_m, p_taps)
+        torch.cuda.synchronize()
+        err = float((v_m - v_m_plain).abs().max())
+        tol = FOLD_RTOL * float(v_m_plain.abs().max())
+        log(f"[check] fold u{tuple(u_m.shape)} ({label}, M={m}): max_abs_err "
+            f"{err:.3e} (tolerance {tol:.3e})")
+        check(tuple(v_m.shape) == (rows, m) and err <= tol,
+              f"fold kernel disagrees at M={m}: {err} > {tol}")
+        fold_err = max(fold_err, err)
+        return u_m, bank_m, v_m_plain
+
+    # config #2's listener bank: M = 64, a 1875-sample channel block;
+    # configs #3 and #6: M = 256 at 8.192 MS/s, 6400; the server's NFM bank
+    # (phase 7): M = 128, 12800; a rank's time slice of config #5's block
+    # over POD_RANKS ranks (phase 8b): M = 1024, 2400 / POD_RANKS
+    u64, bank64, v64_plain = fold_case("config #2", 64, 1875, gen)
+    u256, bank256, v256_plain = fold_case("configs #3 and #6", 256, 6400, gen)
+    u128, bank128, v128_plain = fold_case("the server's NFM bank", 128, 12800, gen_srv)
+    upod, bankpod, vpod_plain = fold_case(
+        f"a rank's slice over {POD_RANKS} ranks", M, 2400 // POD_RANKS, gen_pod)
 
     # squelch at every path's shape (rows over 40 dB, thresholds near them,
     # random start states, a silent and a half-NaN row), on real input, on
@@ -2056,36 +2371,10 @@ def main() -> int:
     secondary_bank_check(torch, dev)
 
     # -- 5. the paths at full width ------------------------------------------
-    # record the shapes the paths hand the AGC, the ADPCM encoders and the
-    # squelch (the stages call them through their modules)
-    seen_agc, seen_adpcm, seen_squelch, seen_seq, seen_iir = set(), set(), set(), set(), set()
-    agc_apply, adpcm_encode = agc.agc_apply, adpcm.adpcm_encode
-    squelch_apply, adpcm_encode_seq = squelch.squelch_apply, adpcm.adpcm_encode_seq
-    first_order_apply = iir.first_order_apply
-
-    def agc_recorded(state, profile, x, chunk=agc.CHUNK, device="cuda"):
-        seen_agc.add((profile, tuple(x.shape), chunk))
-        return agc_apply(state, profile, x, chunk, device=device)
-
-    def adpcm_recorded(state, x):
-        seen_adpcm.add(tuple(x.shape))
-        return adpcm_encode(state, x)
-
-    def squelch_recorded(state, level_db, x, window, hang_windows=2):
-        seen_squelch.add((tuple(x.shape), window))
-        return squelch_apply(state, level_db, x, window, hang_windows)
-
-    def seq_recorded(state, x):
-        seen_seq.add(tuple(x.shape))
-        return adpcm_encode_seq(state, x)
-
-    def iir_recorded(state, b0, b1, a1, x, device="cuda"):
-        seen_iir.add(tuple(x.shape))
-        return first_order_apply(state, b0, b1, a1, x, device=device)
-
-    agc.agc_apply, adpcm.adpcm_encode = agc_recorded, adpcm_recorded
-    squelch.squelch_apply, adpcm.adpcm_encode_seq = squelch_recorded, seq_recorded
-    iir.first_order_apply = iir_recorded
+    # record the shapes the paths hand the kernels (the stages call them
+    # through their modules)
+    seen = shape_record()
+    stop_recording = record_shapes(seen)
     paths = {}
     launches_by_path = {}
     n_blocks = WARMUP_BLOCKS + TIMED_BLOCKS
@@ -2373,27 +2662,20 @@ def main() -> int:
     runtime_paths(torch, dev, smi, paths, launches_by_path)
     cli_session(smi, paths, adpcm)
     server_paths(torch, dev, smi, paths, launches_by_path)
+    pod_one_rank(torch, dev, smi, paths, launches_by_path)
+    pod_ranks(torch, dev, smi, paths, launches_by_path, seen)
 
-    agc.agc_apply, adpcm.adpcm_encode = agc_apply, adpcm_encode
-    squelch.squelch_apply, adpcm.adpcm_encode_seq = squelch_apply, adpcm_encode_seq
-    iir.first_order_apply = first_order_apply
-    log(f"[shapes] agc on the paths: {sorted((s, c) for _, s, c in seen_agc)}; "
-        f"adpcm_encode on the paths: {sorted(seen_adpcm)}; squelch on the "
-        f"paths: {sorted(seen_squelch)}; adpcm_encode_seq on the paths: "
-        f"{sorted(seen_seq)}; iir on the paths: {sorted(seen_iir)}")
-    # phase 3 checked exactly these; an empty record fails here too
-    path_agc = {(getattr(agc, p), s, c) for p, s, c in AGC_PATH_CASES.values()}
-    check(seen_agc == path_agc, f"AGC shapes on the paths {seen_agc} are not "
-          f"the expected {path_agc}")
-    check(seen_adpcm == set(ADPCM_PATH_SHAPES.values()), f"ADPCM shapes on the "
-          f"paths {seen_adpcm} are not the expected {set(ADPCM_PATH_SHAPES.values())}")
-    path_squelch = {(s, w) for s, w in SQUELCH_PATH_CASES.values()}
-    check(seen_squelch == path_squelch, f"squelch shapes on the paths "
-          f"{seen_squelch} are not the expected {path_squelch}")
-    check(seen_seq == ADPCM_SEQ_PATH_SHAPES, f"adpcm_encode_seq shapes on the "
-          f"paths {seen_seq} are not the expected {ADPCM_SEQ_PATH_SHAPES}")
-    check(seen_iir == set(IIR_PATH_CASES.values()), f"IIR shapes on the paths "
-          f"{seen_iir} are not the expected {set(IIR_PATH_CASES.values())}")
+    stop_recording()
+    log("[shapes] on the paths: " + "; ".join(f"{k} {sorted(v)}" for k, v in seen.items()))
+    # phase 3 checked exactly these (the fold's path shapes are logged
+    # only); an empty record fails here too
+    for name, want in (("agc", set(AGC_PATH_CASES.values())),
+                       ("adpcm", set(ADPCM_PATH_SHAPES.values())),
+                       ("squelch", set(SQUELCH_PATH_CASES.values())),
+                       ("seq", ADPCM_SEQ_PATH_SHAPES),
+                       ("iir", set(IIR_PATH_CASES.values()))):
+        check(seen[name] == want, f"{name} shapes on the paths {seen[name]} are "
+              f"not the expected {want}")
     print(json.dumps({"card": smi, "paths": paths}), flush=True)
 
     # -- 6. kernel timings at the main-path shapes ------------------------------
@@ -2408,11 +2690,20 @@ def main() -> int:
     v_conv = F.conv1d(lhs, wconv, groups=M)
     conv_err = float((torch.complex(v_conv[0], v_conv[1]).T - v_plain).abs().max())
     fold_lib_ms = time_cuda(lambda: F.conv1d(lhs, wconv, groups=M), iters, torch)
-    lhs64 = torch.view_as_real(u64).permute(2, 1, 0).contiguous()
-    wconv64 = bank64.T.contiguous()[:, None, :]
-    conv64_err = float((torch.complex(*F.conv1d(lhs64, wconv64, groups=64)).T
-                        - v64_plain).abs().max())
-    fold64_lib_ms = time_cuda(lambda: F.conv1d(lhs64, wconv64, groups=64), iters, torch)
+
+    def conv_fold(u_, bank_, v_):
+        """The same yardstick at another path's shape → (ms, max diff)."""
+        lhs_ = torch.view_as_real(u_).permute(2, 1, 0).contiguous()
+        w_ = bank_.T.contiguous()[:, None, :]
+        m_ = u_.shape[1]
+        err = float((torch.complex(*F.conv1d(lhs_, w_, groups=m_)).T - v_).abs().max())
+        return time_cuda(lambda: F.conv1d(lhs_, w_, groups=m_), iters, torch), err
+
+    fold_lib = {"cfg2 (1890, 64)": conv_fold(u64, bank64, v64_plain),
+                "cfg3/cfg6 (6415, 256)": conv_fold(u256, bank256, v256_plain),
+                "server nfm (12815, 128)": conv_fold(u128, bank128, v128_plain),
+                f"pod{POD_RANKS} rank {tuple(upod.shape)}": conv_fold(upod, bankpod,
+                                                                  vpod_plain)}
     iir_st, iir_x, deemph = iir_in["nfm"]
     iir_ms = time_cuda(lambda: iir.first_order_apply(iir_st, *deemph, iir_x, device=dev),
                        iters, torch)
@@ -2436,9 +2727,9 @@ def main() -> int:
     iir_bound, iir_by = bound(iir_bytes, iir_ops)
     log(f"[time] {smi}: fold kernel {fold_ms:.5f} ms, bound {fold_bound:.5f} ms "
         f"({fold_by}: {fold_bytes} B, {fold_ops} flop), plain {fold_plain_ms:.5f} ms, "
-        f"depthwise F.conv1d {fold_lib_ms:.5f} ms (max diff {conv_err:.2e}); at "
-        f"u{tuple(u64.shape)} depthwise F.conv1d {fold64_lib_ms:.5f} ms (max diff "
-        f"{conv64_err:.2e})")
+        f"depthwise F.conv1d {fold_lib_ms:.5f} ms (max diff {conv_err:.2e}); "
+        + "; ".join(f"at {k} depthwise F.conv1d {ms:.5f} ms (max diff {e:.2e})"
+                    for k, (ms, e) in fold_lib.items()))
     log(f"[time] {smi}: iir kernel {iir_ms:.5f} ms, bound {iir_bound:.5f} ms "
         f"({iir_by}: {iir_bytes} B, {iir_ops} flop), plain {iir_plain_ms:.5f} ms")
 
@@ -2473,15 +2764,17 @@ def main() -> int:
     fold_row = timed("(2415, 1024)", "fold kernel",
                      lambda u_, b_: polyphase_fold(u_, b_, p_taps, device=dev),
                      (u, bank2), fold_bytes, fold_ops, FP32_OPS_PER_S)
-    fold64_row = timed("(1890, 64)", "fold kernel",
-                       lambda u_, b_: polyphase_fold(u_, b_, p_taps, device=dev),
-                       (u64, bank64), u64.numel() * 8 + bank64.numel() * 4
-                       + v64.numel() * 8, 4 * p_taps * v64.numel(), FP32_OPS_PER_S)
-    fold64_row["library_ms"] = fold64_lib_ms
-    fold128_row = timed("(12815, 128)", "fold kernel",
-                        lambda u_, b_: polyphase_fold(u_, b_, p_taps, device=dev),
-                        (u128, bank128), u128.numel() * 8 + bank128.numel() * 4
-                        + v128.numel() * 8, 4 * p_taps * v128.numel(), FP32_OPS_PER_S)
+    fold_rows = {}
+    for label, (u_, b_, v_) in {
+            "cfg2 (1890, 64)": (u64, bank64, v64_plain),
+            "cfg3/cfg6 (6415, 256)": (u256, bank256, v256_plain),
+            "server nfm (12815, 128)": (u128, bank128, v128_plain),
+            f"pod{POD_RANKS} rank {tuple(upod.shape)}": (upod, bankpod, vpod_plain)}.items():
+        fold_rows[label] = dict(library_ms=fold_lib[label][0], **timed(
+            label, "fold kernel",
+            lambda u_, b_: polyphase_fold(u_, b_, p_taps, device=dev), (u_, b_),
+            u_.numel() * 8 + b_.numel() * 4 + v_.numel() * 8,
+            4 * p_taps * v_.numel(), FP32_OPS_PER_S))
     # the IIR at every path's shape, with that path's coefficients
     iir_rows = {}
     for label, (st, x, co) in iir_in.items():
@@ -2681,8 +2974,7 @@ def main() -> int:
          "launches": total("fold.cu"), "launches_by_path": by_path("fold.cu"),
          "max_abs_err": fold_err, "ms": fold_ms, "cold_ms": fold_row["cold_ms"],
          "plain_ms": fold_plain_ms, "bound_ms": fold_bound, "bound_by": fold_by,
-         "library_ms": fold_lib_ms, "by_shape": {"cfg2 (1890, 64)": fold64_row,
-                                                   "server nfm (12815, 128)": fold128_row}},
+         "library_ms": fold_lib_ms, "by_shape": fold_rows},
         {"name": "adpcm_encode", "route": "cuda",
          "source": "openwebrx_tpu_torch/csrc/adpcm.cu",
          "replaces": "openwebrx_tpu/ops/adpcm.py:131",
@@ -2736,5 +3028,30 @@ def main() -> int:
     return 0
 
 
+def pod_ranks_alone(worlds) -> int:
+    """Phase 8b alone at each world size of ``worlds`` (``chip_smoke.py
+    --pod-ranks 2 4``), after building the kernels: on a machine with that
+    many cards, NCCL over the cards' link."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from openwebrx_tpu_torch import kernels
+    smi = nvidia_smi()
+    log(f"[card] nvidia-smi: {smi} | {torch.cuda.device_count()} cards | torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+    log(f"[build] {kernels.build_all():.1f} s wall")
+    paths, launches = {}, {}
+    for world in worlds:
+        pod_ranks(torch, torch.device("cuda", 0), smi, paths, launches,
+                  shape_record(), world=int(world))
+    print(json.dumps({"card": smi, "paths": paths, "launches": launches}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pod-worker"]:
+        sys.exit(pod_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--pod-ranks"]:
+        sys.exit(pod_ranks_alone(sys.argv[2:]))
     sys.exit(main())

@@ -197,22 +197,7 @@ def open_device(name: str):
     return device
 
 
-def check_single_host(num_processes: int | None):
-    """Serving across several hosts (``--num-processes`` or
-    ``OWRX_NUM_PROCESSES`` above 1) is not ported: exit rather than serve
-    one host's share as if it were the whole receiver.  One host is a no-op,
-    as in the reference's cluster join."""
-    if num_processes is None:
-        num_processes = int(os.environ.get("OWRX_NUM_PROCESSES", "1"))
-    if num_processes > 1:
-        raise SystemExit(
-            f"{num_processes} processes asked for, but multi-host serving is "
-            "not ported to PyTorch yet (ROADMAP.md, Queue 1 item 12); run "
-            "one process")
-
-
 async def main_async(args):
-    check_single_host(getattr(args, "num_processes", None))
     SdrService.device = open_device(getattr(args, "device", "cuda"))
     if args.signal_demo:
         config = Config.get()
@@ -220,6 +205,19 @@ async def main_async(args):
     failed = FeatureDetector().get_failed_requirements("core")
     if failed:
         raise SystemExit(f"missing core requirements: {failed}")
+    # multi-host pod config (BASELINE #5): join the torch.distributed
+    # cluster before any device program runs.  No-op single-host —
+    # driven by OWRX_COORDINATOR/OWRX_NUM_PROCESSES/OWRX_PROCESS_ID or
+    # the CLI flags (parallel/cluster.py).
+    from openwebrx_tpu_torch.parallel.cluster import init_cluster
+    cluster = init_cluster(getattr(args, "coordinator", None),
+                           getattr(args, "num_processes", None),
+                           getattr(args, "process_id", None),
+                           device=SdrService.device)
+    if cluster.num_processes > 1:
+        logger.info("joined cluster: host %d/%d, %d local / %d global chips",
+                    cluster.process_id, cluster.num_processes,
+                    cluster.local_device_count, cluster.global_device_count)
     SdrService.load()
     # boot ordering per reference owrx/__main__.py:138-158: sources →
     # background services → web server

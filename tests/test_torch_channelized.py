@@ -404,7 +404,9 @@ class TestGuards:
                     "core/config.py", "core/feature.py", "sources/file.py",
                     "aprs/parser.py", "digimodes/psk.py", "reporting/mqtt.py",
                     "services/engine.py", "web/server.py", "web/settings.py",
-                    "web/connection.py", "native.py", "sdr.py", "__main__.py"):
+                    "web/connection.py", "native.py", "sdr.py", "__main__.py",
+                    "parallel/mesh.py", "parallel/halo.py", "parallel/pfb.py",
+                    "parallel/pod.py", "parallel/cluster.py"):
             assert REPO / "openwebrx_tpu_torch" / rel in files, rel
         files += [REPO / "chip_smoke.py", REPO / "profile_torch_bank.py",
                   REPO / "compare_bank_ms.py"]

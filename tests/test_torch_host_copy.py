@@ -33,8 +33,8 @@ DIVERGES = {
                        "jax.profiler; the log endpoint's default logger is "
                        "the port's package",
     "web/server.py": "--device (no CPU fallback; kernels built before the "
-                     "server listens), a single-host check in place of the "
-                     "jax.distributed cluster join, --config",
+                     "server listens), the cluster join through the port's "
+                     "torch.distributed init_cluster on that device, --config",
     "__main__.py": "every argument but 'admin ...' goes to the server: the "
                    "reference's parse_known_args takes an option's value "
                    "(--port 8073, --device cpu) for a subcommand",

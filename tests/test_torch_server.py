@@ -571,12 +571,57 @@ class TestCommandLine:
         assert "--device cpu" in proc.stderr
         assert "ready on" not in proc.stderr
 
-    def test_several_processes_are_refused(self):
+    def test_several_processes_need_a_coordinator(self):
         proc = self._run("--device", "cpu", "--signal-demo", "--port", "0",
                          "--num-processes", "2")
         assert proc.returncode != 0
-        assert "Queue 1 item 12" in proc.stderr
+        assert "coordinator" in proc.stderr
         assert "ready on" not in proc.stderr
+
+    def test_two_processes_join_a_cluster(self, tmp_path):
+        """Two servers on --device cpu join one gloo cluster as hosts 0 and
+        1, each serves its own port, and SIGTERM stops both cleanly."""
+        settings = tmp_path / "settings.json"
+        settings.write_text(json.dumps({"version": 8, "web_agents_enabled": False}))
+        ports = []
+        for _ in range(3):
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                ports.append(s.getsockname()[1])
+        coordinator, web = ports[0], ports[1:]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "openwebrx_tpu_torch", "--device", "cpu",
+             "--signal-demo", "--port", str(web[i]), "--config", str(settings),
+             "--coordinator", f"127.0.0.1:{coordinator}",
+             "--num-processes", "2", "--process-id", str(i)],
+            cwd=REPO, env=self._env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for i in range(2)]
+        try:
+            deadline = time.monotonic() + 90
+            for port, proc in zip(web, procs):
+                up = False
+                while not up and time.monotonic() < deadline \
+                        and proc.poll() is None:
+                    try:
+                        up = asyncio.run(http(port, "GET", "/status.json"))[0] == 200
+                    except OSError:
+                        time.sleep(0.2)
+                assert up, proc.stderr.read() if proc.poll() is not None else ""
+            errs = []
+            for proc in procs:
+                proc.send_signal(signal.SIGTERM)
+            for proc in procs:
+                _, err = proc.communicate(timeout=60)
+                assert proc.returncode == 0, err
+                errs.append(err)
+            for i, err in enumerate(errs):
+                assert f"joined cluster: host {i}/2" in err
+                assert "ready on" in err and "shutting down" in err
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
 
     def test_serves_on_the_cpu(self, tmp_path):
         """The whole start-up (settings file, sources, services, markers,
