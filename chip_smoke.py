@@ -24,7 +24,12 @@ Phases (any failure raises and the script exits non-zero):
    squelch at every path's shape and on silent rows, NaN rows and a burst
    that arms the hang and runs it out, with power_db within
    SQUELCH_DB_TOL and gates, hang and output bit-identical wherever the
-   power is not that close to the level; the exact IMA row encoder
+   power is not that close to the level, every case launched twice with
+   the same bits, plus real rows (the 4-byte path), rows of 100 windows,
+   a window straddling two CTAs of a cluster with a shorter last slice,
+   rows long enough for the re-read branch, x at an unaligned address,
+   config #1's 0-dim state with one level and the hang carried over three
+   calls against the plain version's chain; the exact IMA row encoder
    (``adpcm_encode_seq``) bit-identical at the waterfall's shape, on 16
    rows, on full-scale square waves and from random start states; phase
    8's per-rank shapes (squelch and AGC at (M / POD_RANKS, 600), and the
@@ -61,9 +66,11 @@ Phases (any failure raises and the script exits non-zero):
 6. kernel device times (CUDA events, launches queued ahead of the device)
    beside their bounds, the plain versions and, for the fold, one PyTorch
    call computing the same function; the fold and the IIR warm and cold;
-   the AGC, the ADPCM encoder and the squelch at every path's shape, warm
-   and cold (each launch on its own copy of the inputs, none of them in the
-   L2 cache); the recurrences beside the time of their serial chain,
+   the AGC, the ADPCM encoder and the squelch at every path's shape (the
+   squelch also on its real and 100-window inputs, beside its launch plan
+   and a cold device copy of x), warm and cold (each launch on its own copy
+   of the inputs, none of them in the L2 cache); the row encoder also on
+   the two 8.192 MS/s rows; the recurrences beside the time of their serial chain,
    measured as a per-step slope: the AGC on one row of 48 and of 96
    chunks, the ADPCM recurrence in lanes of 104 and of 200 nibbles (the
    shorter build, first checked against the plain recurrence and for the
@@ -426,6 +433,15 @@ def squelch_input(torch, gen, dev, shape, window, dtype=None):
              torch.randint(0, 3, (rows,), generator=gen, device=dev,
                            dtype=torch.int32).reshape(lead))
     return state, level.reshape(lead).contiguous(), x.reshape(shape).contiguous()
+
+
+def squelch_plan_of(x, window):
+    """The launch plan ops/squelch.py gives the squelch kernel for x."""
+    from openwebrx_tpu_torch.ops import squelch
+    rows = int(np.prod(x.shape[:-1]))
+    return squelch.squelch_plan(rows, x.shape[-1], window, 2 if x.is_complex() else 1,
+                                aligned=x.data_ptr() % 16 == 0,
+                                sms=squelch._sms(x.device.index))
 
 
 def squelch_bytes(shape, window, complex_=True):
@@ -2063,7 +2079,13 @@ def main() -> int:
         nonlocal squelch_err
         sk, yk, pk = squelch.squelch_apply(st, level, x, window)
         sp, yp, pp = squelch.squelch_apply_plain(st, level, x, window)
+        # a second launch on the same input: the same bits
+        sk2, yk2, pk2 = squelch.squelch_apply(st, level, x, window)
         torch.cuda.synchronize()
+        check(torch.equal(bits(torch, yk), bits(torch, yk2))
+              and torch.equal(pk.view(torch.int32), pk2.view(torch.int32))
+              and torch.equal(sk[0], sk2[0]) and torch.equal(sk[1], sk2[1]),
+              f"squelch kernel: two launches on one input differ ({label})")
         nan_same = torch.equal(pk.isnan(), pp.isnan())
         fin = ~pp.isnan()
         err = float((pk[fin] - pp[fin]).abs().max()) if bool(fin.any()) else 0.0
@@ -2074,10 +2096,12 @@ def main() -> int:
                 and torch.equal(sk[0][clear], sp[0][clear])
                 and torch.equal(sk[1][clear], sp[1][clear]))
         share = float(clear.float().mean())
+        plan = squelch_plan_of(x, window)
         log(f"[check] squelch {label} x{tuple(x.shape)} {str(x.dtype)[6:]} window "
-            f"{window}: power_db max_abs_err {err:.3e} dB (tolerance "
+            f"{window}, plan {tuple(plan)}: power_db max_abs_err {err:.3e} dB (tolerance "
             f"{SQUELCH_DB_TOL}), NaN where the plain has NaN = {nan_same}; "
-            f"{share:.3f} of rows clear of the level, identical there = {same}")
+            f"{share:.3f} of rows clear of the level, identical there = {same}; "
+            f"a second launch bit-identical")
         check(nan_same and err <= SQUELCH_DB_TOL and same and share >= 0.9,
               f"squelch kernel disagrees ({label})")
         if expect is not None:
@@ -2088,9 +2112,57 @@ def main() -> int:
         squelch_in[label] = (*squelch_input(torch, gen_for(label), dev, shape, window),
                              window)
         squelch_case(label, *squelch_in[label])
-    squelch_case("real", *squelch_input(torch, gen, dev, (5, 4801), 4801,
-                                        torch.float32), 4801)
-    squelch_case("tiled", *squelch_input(torch, gen, dev, (3, 40000), 400), 400)
+    squelch_more = {"real": (*squelch_input(torch, gen, dev, (5, 4801), 4801,
+                                            torch.float32), 4801),
+                    "tiled": (*squelch_input(torch, gen, dev, (3, 40000), 400), 400)}
+    for label, case in squelch_more.items():
+        squelch_case(label, *case)
+    check(not squelch_plan_of(squelch_more["real"][2], 4801).vec,
+          "squelch: real (5, 4801) rows must take the 4-byte path")
+    # a window straddling two CTAs of a cluster, the last slice shorter
+    # than the others; a row past eight CTAs' shared memory (the re-read
+    # branch, streamed in chunks, the last one shorter); x at an address
+    # 8 bytes off 16 (the 4-byte path on an even row); config #1's 0-dim
+    # state with one level (from a generator of their own: the draws of
+    # `gen` that later checks see stay as they were)
+    gen_sq = torch.Generator(device=dev)
+    gen_sq.manual_seed(9)
+    st, lv, x = squelch_input(torch, gen_sq, dev, (12, 15000), 5000)
+    plan = squelch_plan_of(x, 5000)
+    wf = 2 * 5000
+    check(plan.cluster > 1 and 15000 * 2 - (plan.cluster - 1) * plan.slice < plan.slice
+          and any((c * wf) // plan.slice != ((c + 1) * wf - 1) // plan.slice
+                  for c in range(3)), f"squelch straddle case: plan {tuple(plan)}")
+    squelch_case("straddle", st, lv, x, 5000)
+    st, lv, x = squelch_input(torch, gen_sq, dev, (2, 300000), 30000)
+    plan = squelch_plan_of(x, 30000)
+    check(plan.reread(300000, 2) and plan.slice % plan.chunk != 0,
+          f"squelch re-read case: plan {tuple(plan)}")
+    squelch_case("re-read", st, lv, x, 30000)
+    st, lv, x = squelch_input(torch, gen_sq, dev, (64, 2400), 800)
+    xo = torch.empty(x.numel() * 2 + 2, device=dev)[2:].view(torch.complex64).view(x.shape)
+    xo.copy_(x)
+    check(not squelch_plan_of(xo, 800).vec, "squelch: unaligned x must take the 4-byte path")
+    squelch_case("unaligned x", st, lv, xo, 800)
+    st, lv, x = squelch_input(torch, gen_sq, dev, (4800,), 2400)
+    check(st[0].dim() == 0, "config #1's squelch state is 0-dim")
+    squelch_case("cfg1 one level", st, lv.reshape(()), x, 2400)
+    # the hang carried over three calls, the state fed back, against the
+    # plain version's chain: a burst arms it, silence runs it out
+    chain_x = torch.zeros(8, 2400, dtype=torch.complex64, device=dev)
+    chain_x[4:6, 600:1200] = 1.0
+    chain_x[6:8, 1800:2400] = 1.0
+    sk = sp = squelch.squelch_init((8,), device=dev)
+    lvl = torch.tensor(-20.0, device=dev)
+    for i in range(3):
+        xi = chain_x if i == 0 else torch.zeros_like(chain_x)
+        sk, yk, pk = squelch.squelch_apply(sk, lvl, xi, 600)
+        sp, yp, pp = squelch.squelch_apply_plain(sp, lvl, xi, 600)
+        check(torch.equal(sk[0], sp[0]) and torch.equal(sk[1], sp[1])
+              and torch.equal(bits(torch, yk), bits(torch, yp)),
+              f"squelch hang chain, call {i}: {sk[1].tolist()} vs {sp[1].tolist()}")
+    log(f"[check] squelch hang over three calls, state fed back: open/hang "
+        f"{sk[0].tolist()} {sk[1].tolist()} after the last, as the plain chain")
     # the scene: 4 windows from the initial state, one threshold for all
     # rows; silence and NaN never open, a burst in window 1 holds the gate
     # two windows and runs out, one in window 2 is still held at the end
@@ -2784,15 +2856,29 @@ def main() -> int:
             (*st, x), *iir_bytes_ops(x), FP32_OPS_PER_S))
     iir_row = iir_rows["nfm"]
 
-    # the squelch at every path's shape, warm and cold; bound by bytes (x
-    # in, y out); no chain to speak of (a few windows a row)
+    # the squelch at every path's shape and on the real and tiled inputs,
+    # warm and cold; bound by bytes (x in, y out); no chain to speak of (a
+    # few windows a row).  Beside it the yardstick of a plain device copy
+    # of x (copy_, cold: each on its own copy after the flush), the least a
+    # kernel that reads x and writes y can hope for at these sizes
     squelch_rows = {}
-    for label, (st, level, x, window) in squelch_in.items():
-        squelch_rows[label] = dict(shape=list(x.shape), window=window, **timed(
-            label, "squelch kernel",
-            lambda o, h, lv, x, window=window: squelch.squelch_apply(
-                (o, h), lv, x, window), (*st, level, x),
-            squelch_bytes(tuple(x.shape), window), 4 * x.numel(), FP32_OPS_PER_S))
+    for label, (st, level, x, window) in {**squelch_in, **squelch_more}.items():
+        srcs = [x.clone() for _ in range(COLD_COPIES)]
+        dsts = [torch.empty_like(x) for _ in range(COLD_COPIES)]
+        copy_ms = time_cuda([lambda i=i: dsts[i].copy_(srcs[i]) for i in range(COLD_COPIES)],
+                            COLD_COPIES, torch, flush)
+        del srcs, dsts
+        squelch_rows[label] = dict(
+            shape=list(x.shape), window=window, plan=list(squelch_plan_of(x, window)),
+            copy_cold_ms=copy_ms, **timed(
+                label, "squelch kernel",
+                lambda o, h, lv, x, window=window: squelch.squelch_apply(
+                    (o, h), lv, x, window), (*st, level, x),
+                squelch_bytes(tuple(x.shape), window, x.is_complex()), 4 * x.numel(),
+                FP32_OPS_PER_S))
+        log(f"[time] {smi}: squelch {label}: plan {tuple(squelch_plan_of(x, window))}, "
+            f"copy_ of x cold {copy_ms:.5f} ms, kernel cold / copy_ "
+            f"{squelch_rows[label]['cold_ms'] / copy_ms:.3f}")
     # device kernels a call launches (torch.profiler's kernel records, the
     # hand-written ones included): the plain version against the kernel
     from torch.autograd import DeviceType
@@ -2806,13 +2892,17 @@ def main() -> int:
         return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
                    and "memcpy" not in e.name.lower() and "memset" not in e.name.lower())
 
-    for label, (st, level, x, window) in squelch_in.items():
+    for label, (st, level, x, window) in {**squelch_in, **squelch_more}.items():
         squelch_rows[label]["plain_kernels"] = kernels_launched(
             lambda: squelch.squelch_apply_plain(st, level, x, window))
+        before = kernels.SQUELCH.launches
         squelch_rows[label]["kernels"] = kernels_launched(
             lambda: squelch.squelch_apply(st, level, x, window))
-    log(f"[launches] squelch kernels per call, plain -> kernel: " + ", ".join(
-        f"{k} {v['plain_kernels']} -> {v['kernels']}" for k, v in squelch_rows.items()))
+        squelch_rows[label]["wrapper_launches"] = kernels.SQUELCH.launches - before
+    log(f"[launches] squelch kernels per call, plain -> kernel (profiler kernel events; "
+        f"the wrapper's count in brackets): " + ", ".join(
+            f"{k} {v['plain_kernels']} -> {v['kernels']} ({v['wrapper_launches']})"
+            for k, v in squelch_rows.items()))
     st, level, x, window = squelch_in["nfm"]
     squelch_plain_ms = time_cuda(
         lambda: squelch.squelch_apply_plain(st, level, x, window), 10, torch)
@@ -2858,8 +2948,8 @@ def main() -> int:
         f"us = {SEQ_ROW * seq_step_ms:.5f} ms serial; {seq_nibble_instrs:.2f} SASS "
         f"instructions a nibble")
     seq_rows = {}
-    for label, forced in (("cfg2 row", 0), ("wf row", 0), ("audio", 0), ("16 rows", 0),
-                          ("wf row", 1), ("wf row", 2)):
+    for label, forced in (("cfg2 row", 0), ("wf row", 0), ("8.192 rows", 0), ("audio", 0),
+                          ("16 rows", 0), ("wf row", 1), ("wf row", 2)):
         st, x = seq_in[label]
         rows_, ns = x.shape
         key = f"{label}, forced {forced}" if forced else label

@@ -12,40 +12,80 @@
 // 2400 complex64 samples, one window a row) it reads x once and writes y
 // once, 39.3 MB (11.7 us at 3.35 TB/s), and does ~4 flop a sample.  The
 // recurrence is a handful of integer operations a window, and rows have
-// one to four windows on the paths.
+// one to four windows on the paths.  At the banks' shapes (4.9 MB or
+// less) a plain device copy of the same bytes already takes about twice
+// the bound, so what counts there is how short each CTA's chain from its
+// first byte landed to its last store is.
 //
-// Design: a CTA owns a few whole rows (about four CTAs per SM; rows longer
-// than the tile are walked in tiles of whole windows, and a tile holds at
-// least one window) and per tile:
-//   1. stages the rows in shared memory with 16-byte cp.async (4-byte when
-//      a row is not 16-byte aligned), so x is read from device memory once;
-//   2. sums |x|^2 of every window in parallel, a power-of-two group of
-//      threads a window (whole warps, combined through shared memory in a
-//      fixed order, when there are fewer windows than warps), and turns the
-//      mean into 10 log10(max(p, 1e-30)), NaN-propagating as torch.clamp;
-//   3. one thread per row runs the hang recurrence over the tile's windows;
-//   4. all threads write y = gate ? x : +0.0 from the staged tile with
-//      16-byte stores (a select, never x * 0, which would keep -0.0).
+// Design.  The launch plan (cluster, warps, slice, chunk,
+// stages, grid, shared memory, copy width) comes from ops/squelch.py
+// squelch_plan; this file checks it and runs it.  Two shapes of work:
+//   - Rows (rows of up to 100 KB, every path but WFM): a CTA a row, no
+//     cluster.
+//   - Slices (longer rows: the WFM bank's 400 KB): a row is cut into C
+//     slices (C in 2, 4, 8), one CTA each, launched as a thread-block
+//     cluster of C.  A window may straddle two CTAs.
+// In both, thread 0 stages the CTA's piece with one TMA 1-D bulk copy
+// (cp.async.bulk on an mbarrier) and the other threads wait on the
+// mbarrier, spending no instruction on addresses.  The window sums take
+// a power-of-two group of threads a window, 16 bytes a shared-memory load
+// where the windows lie on 16-byte edges, a butterfly within each warp,
+// and leave one partial a warp in shared memory in a fixed place: no
+// block-wide barrier inside.  After one __syncthreads:
+//   - rows mode: every warp adds the partials in warp order and runs the
+//     hang itself (with one window a row, every thread decides its gate;
+//     with more, the recurrence in closed form over 32 windows at a time:
+//     a ballot of the windows above the level and the distance to the last
+//     of them),
+//     so the gates need no second barrier; then all threads write y;
+//   - slice mode: the CTA's sums go where the cluster reads them, a
+//     cluster barrier, and every warp adds each window's sums over the
+//     CTAs it spans in rank order through distributed shared memory (the
+//     same bits in every CTA of the row), runs the hang over all of the
+//     row's windows from the row's start state and writes y of its share
+//     of the slice; the CTA that holds a window's first sample writes its
+//     power_db, rank 0 the new state.  A second cluster barrier, arrived at
+//     once a thread's remote reads are done and waited on at the end,
+//     keeps every CTA's sums alive while others read them.
+// A piece longer than the shared memory holds (a row of more than eight
+// CTAs' worth, which no path gives) is streamed through up to four
+// stages into running sums, and its y written from a second read of x
+// (the re-read branch).  A piece that is not 16-byte aligned (a row of an
+// odd number of floats, or x at an unaligned address) is staged by 4-byte
+// cp.async from every thread, whose completion the same mbarrier tracks
+// (cp.async.mbarrier.arrive.noinc), and written 4 bytes at a time.
+// Measured on an H100 and given up (PERF.md §6): a ring of row units a
+// CTA (each unit's chain ran serially), a warp a row or a warp a piece
+// (too much serial work a thread), cluster slices for short rows (the
+// cluster's start and barriers cost more than spreading the bytes gains),
+// a slice staged in several chunks, 16-byte cp.async in place of the bulk
+// copy, 16 warps a CTA, a store that walks window by window, persistent
+// clusters that prefetch the next row's slice while storing this one, and
+// the cluster launch for a plan without a cluster.
+// The output is y = gate ? x : +0.0, a select (x * 0 would keep -0.0).
 // |x|^2 of a complex sample is re^2 + im^2, and +inf where either part is
-// infinite, as |x| (a hypot) is.  The window sum is taken in another order
-// than torch.mean, so power_db matches the plain version within a stated
-// tolerance and the gates wherever the power is not that close to the
-// level.
+// infinite, as |x| (a hypot) is; the dB is 10 log10(max(p, 1e-30)),
+// NaN-propagating as torch.clamp.  The window sums are taken in another
+// order than torch.mean, so power_db matches the plain version within a
+// stated tolerance and the gates wherever the power is not that close to
+// the level.  The order depends on the plan alone: two runs of the same
+// input give the same bits.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileFloats = 12288;   // staged x per CTA: 48 KB
-constexpr int kTargetCtas = 528;     // four per SM of a 132-SM H100
-constexpr int kMaxRowsPerCta = 32;   // the recurrence threads fit in warp 0
+constexpr int kMaxWarps = 8;
+constexpr int kMaxStages = 4;
 constexpr int kMaxSmemBytes = 227 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr long long kWaitLimit = 1ll << 33;   // clocks (~4 s): a lost copy traps
 
 struct Params {
   const float* x;          // (rows, n * cplx) floats
@@ -56,19 +96,16 @@ struct Params {
   float* power_db;         // (rows, n / window)
   unsigned char* open_out;
   int* hang_out;
-  int rows, n, window, cplx, level_stride, hang_windows;
-  int rows_per_cta;        // rows a CTA owns
-  int tile_windows;        // windows per row staged at once
+  int rows, n, window, level_stride, hang_windows;
+  int cluster;             // CTAs a row (slice mode), 1 in rows mode
+  int warps;               // warps a CTA
+  int slice;               // slice mode: floats of a row a CTA owns; 0 in rows mode
+  int chunk;               // floats a stage buffer holds
+  int stages;              // stage buffers
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src)
-               : "memory");
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -77,8 +114,63 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+// Wait for the phase of the given parity; trap (a launch error on the
+// host) rather than spin for ever should a copy never land.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  long long t0 = -1;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred q;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 q, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, q;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long t = clock64();
+    if (t0 < 0) t0 = t;
+    else if (t - t0 > kWaitLimit) __trap();
+  }
+}
+
+// Stage floats [0, len) of src at dst, completing one phase of `bar`:
+// kVec, one bulk copy issued by thread 0 (16-byte aligned and sized); else
+// every thread copies 4 bytes at a time and arrives when its copies land
+// (the barrier counts one arrival a thread).
+template <bool kVec>
+__device__ __forceinline__ void stage(float* dst, const float* src, int len,
+                                      unsigned bar, int tid, int nthreads) {
+  if (kVec) {
+    if (tid == 0) {
+      const unsigned bytes = (unsigned)len * 4u;
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                   "r"(bytes)
+                   : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+          "l"(src), "r"(bytes), "r"(bar)
+          : "memory");
+    }
+  } else {
+    for (int k = tid; k < len; k += nthreads) cp_async4(dst + k, src + k);
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // a / b for 0 <= a < 2^22: a float estimate corrected by one step
@@ -96,179 +188,375 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return r;
 }
 
+__device__ __forceinline__ float to_db(float sum, float inv_window) {
+  return __fmul_rn(10.f, log10f(max_nan(__fmul_rn(sum, inv_window), 1e-30f)));
+}
+
 // |x|^2 of one sample: re^2 + im^2, or x^2 for real input
 template <int kCplx>
 __device__ __forceinline__ float power_of(const float* s) {
   if (kCplx == 1) return __fmul_rn(s[0], s[0]);
-  const float re = s[0], im = s[1];
-  const float q = __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
-  return (isinf(re) || isinf(im)) ? __int_as_float(0x7f800000) : q;
+  const float2 v = *reinterpret_cast<const float2*>(s);
+  const float q = __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
+  return (isinf(v.x) || isinf(v.y)) ? __int_as_float(0x7f800000) : q;
 }
 
-// kVec: rows staged with 16-byte copies and written with 16-byte stores
-// (row and tile starts 16-byte aligned); else 4 bytes at a time.
-template <int kCplx, bool kVec>
-__global__ void __launch_bounds__(kThreads) squelch_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const int wf = p.window * kCplx;        // floats a window
-  const int tw = p.tile_windows;
-  const int ld = (tw * wf + 3) & ~3;      // row stride of the staged tile
-  const int ts = tw | 1;
-  const int rpc = p.rows_per_cta;
-  const int rowf = p.n * kCplx;           // floats a row
-  float* xs = smem;                       // [rpc][ld]
-  float* pdb = xs + rpc * ld;             // [rpc][ts] window power, dB
-  int* gate = reinterpret_cast<int*>(pdb + rpc * ts);   // [rpc][ts]
-  float* part = reinterpret_cast<float*>(gate + rpc * ts);   // [kWarps]
-  const int row0 = blockIdx.x * rpc;
-  const int nr = min(rpc, p.rows - row0);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+// The threads that sum one window when `tasks` windows share n threads:
+// a power of two, whole warps only when there are fewer windows than warps.
+__device__ __forceinline__ int group_of(int tasks, int n) {
+  int sub = 1;
+  while (sub < n && tasks * sub * 2 <= n) sub <<= 1;
+  return sub;
+}
 
-  bool open = false;
-  int h = 0;
-  float level = 0.f;
-  if (tid < nr) {
-    open = p.open0[row0 + tid] != 0;
-    h = p.hang0[row0 + tid];
-    level = p.level[(row0 + tid) * p.level_stride];
-  }
+// |x|^2 of the samples of 16 bytes, in sample order
+template <int kCplx>
+__device__ __forceinline__ float power4(float4 v) {
+  if (kCplx == 1)
+    return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y)),
+                               __fmul_rn(v.z, v.z)),
+                     __fmul_rn(v.w, v.w));
+  float a = __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
+  float b = __fadd_rn(__fmul_rn(v.z, v.z), __fmul_rn(v.w, v.w));
+  const float s = __fadd_rn(a, b);
+  if (s == s) return s;   // no NaN: an infinite part already gives +inf
+  const float inf = __int_as_float(0x7f800000);   // (inf, NaN) is +inf, as hypot
+  if (isinf(v.x) || isinf(v.y)) a = inf;
+  if (isinf(v.z) || isinf(v.w)) b = inf;
+  return __fadd_rn(a, b);
+}
 
-  const int nwin = p.n / p.window;
-  const float inv_window = 1.f / (float)p.window;
-  for (int c0 = 0; c0 < nwin; c0 += tw) {
-    const int tcn = min(tw, nwin - c0);   // windows in this tile
-    const int len = tcn * wf;             // floats per row in it
-    const float* xg = p.x + (size_t)row0 * rowf + (size_t)c0 * wf;
-    float* yg = p.y + (size_t)row0 * rowf + (size_t)c0 * wf;
-
-    // 1. stage the tile: every load in flight at once
-    if (kVec) {
-      const int q = len >> 2;
-      const float inv_q = 1.f / (float)q;
-      for (int k = tid; k < nr * q; k += kThreads) {
-        const int r = div_small(k, q, inv_q);
-        const int i = (k - r * q) << 2;
-        cp_async16(xs + r * ld + i, xg + (size_t)r * rowf + i);
-      }
-    } else {
-      const float inv_len = 1.f / (float)len;
-      for (int k = tid; k < nr * len; k += kThreads) {
-        const int r = div_small(k, len, inv_len);
-        const int i = k - r * len;
-        cp_async4(xs + r * ld + i, xg + (size_t)r * rowf + i);
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-    // 2. window powers: sub threads a window; more than a warp only when
-    // there are fewer windows than warps, and then whole warps
-    const int tasks = nr * tcn;
-    int sub = 1;
-    while (sub < kThreads && tasks * sub * 2 <= kThreads) sub <<= 1;
-    const int lsub = __ffs(sub) - 1;
-    const int span = (tasks * sub + kThreads - 1) / kThreads * kThreads;
-    const float inv_tcn = 1.f / (float)tcn;
-    for (int k = tid; k < span; k += kThreads) {   // uniform trip count
-      const int task = k >> lsub;
-      const int part_i = k & (sub - 1);
-      int r = 0, c = 0;
-      float s0 = 0.f, s1 = 0.f;
-      if (task < tasks) {
-        r = div_small(task, tcn, inv_tcn);
-        c = task - r * tcn;
-        const float* xc = xs + r * ld + c * wf;
+// Sum |x|^2 over every window's part in the staged floats xs[0, len),
+// whose first float lies `off` floats into the first window touched, with
+// the CTA's n threads and no block-wide barrier: group_of(tasks, n)
+// threads a window, a butterfly within each warp, and each warp of a
+// window calls emit(t, w, sum) for its part (w: the warp's place among
+// the window's warps, 0 when a window takes a warp or less).  The order
+// depends on (len, off, wf, n) alone.
+template <int kCplx, class Emit>
+__device__ __forceinline__ void window_sums(const float* xs, int len, int off, int wf,
+                                            int tid, int n, Emit emit) {
+  const int tasks = (off + len + wf - 1) / wf;
+  const int sub = group_of(tasks, n);
+  // every window edge and the piece's ends on 16-byte boundaries of xs
+  const bool vec = ((wf | off | len) & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(xs) & 15) == 0;
+  const int lsub = __ffs(sub) - 1;
+  const int span = (tasks * sub + n - 1) / n * n;
+  for (int k = tid; k < span; k += n) {   // uniform trip count
+    const int task = k >> lsub;
+    const int part_i = k & (sub - 1);
+    float s0 = 0.f, s1 = 0.f;
+    if (task < tasks) {
+      const int lo = max(task * wf - off, 0);
+      const int hi = min((task + 1) * wf - off, len);
+      const float* xc = xs + lo;
+      if (vec) {   // 16 bytes a load: the sum of their samples' powers
+        const float4* x4 = reinterpret_cast<const float4*>(xc);
+        const int m = (hi - lo) >> 2;
         int i = part_i;
 #pragma unroll 4
-        for (; i + sub < p.window; i += 2 * sub) {
+        for (; i + sub < m; i += 2 * sub) {
+          s0 = __fadd_rn(s0, power4<kCplx>(x4[i]));
+          s1 = __fadd_rn(s1, power4<kCplx>(x4[i + sub]));
+        }
+        if (i < m) s0 = __fadd_rn(s0, power4<kCplx>(x4[i]));
+      } else {
+        const int m = (hi - lo) / kCplx;   // samples
+        int i = part_i;
+#pragma unroll 4
+        for (; i + sub < m; i += 2 * sub) {
           s0 = __fadd_rn(s0, power_of<kCplx>(xc + i * kCplx));
           s1 = __fadd_rn(s1, power_of<kCplx>(xc + (i + sub) * kCplx));
         }
-        if (i < p.window) s0 = __fadd_rn(s0, power_of<kCplx>(xc + i * kCplx));
-      }
-      float s = __fadd_rn(s0, s1);
-      for (int off = min(sub, 32) >> 1; off > 0; off >>= 1)
-        s = __fadd_rn(s, __shfl_xor_sync(kFull, s, off));
-      if (sub > 32) {                       // one task spans sub / 32 warps
-        if (lane == 0) part[warp] = s;
-        __syncthreads();
-        if (part_i == 0 && task < tasks) {
-          s = 0.f;
-          for (int w = 0; w < (sub >> 5); ++w) s = __fadd_rn(s, part[warp + w]);
-        }
-        __syncthreads();
-      }
-      if (task < tasks && part_i == 0) {
-        const float mean = __fmul_rn(s, inv_window);
-        const float db = __fmul_rn(10.f, log10f(max_nan(mean, 1e-30f)));
-        pdb[r * ts + c] = db;
-        p.power_db[(size_t)(row0 + r) * nwin + c0 + c] = db;
+        if (i < m) s0 = __fadd_rn(s0, power_of<kCplx>(xc + i * kCplx));
       }
     }
-    __syncthreads();
-
-    // 3. the hang recurrence: one thread per row
-    if (tid < nr) {
-      for (int c = 0; c < tcn; ++c) {
-        const bool above = pdb[tid * ts + c] > level;   // false for NaN
-        h = above ? p.hang_windows : max(h - 1, 0);
-        open = above || h > 0;
-        gate[tid * ts + c] = open;
-      }
-    }
-    __syncthreads();
-
-    // 4. y = gate ? x : +0.0 from the staged tile
-    const float inv_wf = 1.f / (float)wf;
-    if (kVec) {
-      const int q = len >> 2;
-      const float inv_q = 1.f / (float)q;
-      for (int k = tid; k < nr * q; k += kThreads) {
-        const int r = div_small(k, q, inv_q);
-        const int i = (k - r * q) << 2;
-        float4 v = *reinterpret_cast<const float4*>(xs + r * ld + i);
-        const int c = div_small(i, wf, inv_wf);
-        if ((i + 3) - c * wf < wf) {        // one window for all four
-          if (!gate[r * ts + c]) v = make_float4(0.f, 0.f, 0.f, 0.f);
-        } else {
-          float e[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            if (!gate[r * ts + div_small(i + u, wf, inv_wf)]) e[u] = 0.f;
-          v = make_float4(e[0], e[1], e[2], e[3]);
-        }
-        *reinterpret_cast<float4*>(yg + (size_t)r * rowf + i) = v;
-      }
-    } else {
-      const float inv_len = 1.f / (float)len;
-      for (int k = tid; k < nr * len; k += kThreads) {
-        const int r = div_small(k, len, inv_len);
-        const int i = k - r * len;
-        const int c = div_small(i, wf, inv_wf);
-        yg[(size_t)r * rowf + i] = gate[r * ts + c] ? xs[r * ld + i] : 0.f;
-      }
-    }
-    __syncthreads();   // the next tile overwrites xs, pdb and gate
-  }
-  if (tid < nr) {
-    p.open_out[row0 + tid] = open ? 1 : 0;
-    p.hang_out[row0 + tid] = h;
+    float s = __fadd_rn(s0, s1);
+    for (int o = min(sub, 32) >> 1; o > 0; o >>= 1)
+      s = __fadd_rn(s, __shfl_xor_sync(kFull, s, o));
+    if (task < tasks && (part_i & 31) == 0) emit(task, part_i >> 5, s);
   }
 }
 
-int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
-
-template <int kCplx>
-cudaError_t launch(Params p, bool vec, size_t smem, cudaStream_t stream) {
-  auto kernel = vec ? squelch_kernel<kCplx, true> : squelch_kernel<kCplx, false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+// The hang over windows [0, nwin) of a row, 32 windows at a time, by one
+// warp: window c is open when it is above its level (pdb[c] dB > level,
+// false for NaN) or the hang counter after it is positive, the counter
+// being hang_windows at the last window above and one less each window
+// on (never below 0), or the start counter h less c + 1 when no window
+// before it was above: the plain version's recurrence in closed form.
+// Writes the gate (int) over pdb[c]; leaves the state after the last
+// window in (open, h) of every lane.
+__device__ __forceinline__ void hang_gates(float* pdb, int nwin, float level, int hw,
+                                           bool& open, int& h, int lane) {
+  int* gate = reinterpret_cast<int*>(pdb);
+  for (int c0 = 0; c0 < nwin; c0 += 32) {
+    const int c = c0 + lane;
+    const bool above = c < nwin && pdb[c] > level;
+    const unsigned prior = __ballot_sync(kFull, above) & (0xffffffffu >> (31 - lane));
+    int hc;
+    if (prior) {
+      const int last = 31 - __clz(prior);
+      hc = last == lane ? hw : max(hw - (lane - last), 0);
+    } else {
+      hc = max(h - (lane + 1), 0);
+    }
+    const bool g = above || hc > 0;
+    if (c < nwin) gate[c] = g;
+    const int tail = min(31, nwin - 1 - c0);
+    h = __shfl_sync(kFull, hc, tail);
+    open = __shfl_sync(kFull, g, tail);
   }
-  const int blocks = (p.rows + p.rows_per_cta - 1) / p.rows_per_cta;
-  kernel<<<blocks, kThreads, smem, stream>>>(p);
+}
+
+// y = gate ? x : +0.0 for floats [0, len) of a piece whose first float
+// lies `off` floats into its first window, by the CTA's n threads;
+// gate[t] of each window touched.
+template <bool kVec>
+__device__ __forceinline__ void gated_store(float* dst, const float* src, int len, int off,
+                                            int wf, const int* gate, int tid, int n) {
+  const float inv_wf = 1.f / (float)wf;
+  if (off + len <= wf) {                  // one window: one gate for the piece
+    if (!gate[0]) {
+      if (kVec)
+#pragma unroll 4
+        for (int i = 4 * tid; i < len; i += 4 * n)
+          *reinterpret_cast<float4*>(dst + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+      else
+        for (int i = tid; i < len; i += n) dst[i] = 0.f;
+    } else if (kVec) {
+#pragma unroll 4
+      for (int i = 4 * tid; i < len; i += 4 * n)
+        *reinterpret_cast<float4*>(dst + i) = *reinterpret_cast<const float4*>(src + i);
+    } else {
+      for (int i = tid; i < len; i += n) dst[i] = src[i];
+    }
+    return;
+  }
+  if (kVec) {
+    for (int i = 4 * tid; i < len; i += 4 * n) {
+      float4 v = *reinterpret_cast<const float4*>(src + i);
+      const int t = div_small(off + i, wf, inv_wf);
+      if (off + i + 3 < (t + 1) * wf) {      // one window for all four
+        if (!gate[t]) v = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (!gate[div_small(off + i + u, wf, inv_wf)]) e[u] = 0.f;
+        v = make_float4(e[0], e[1], e[2], e[3]);
+      }
+      *reinterpret_cast<float4*>(dst + i) = v;
+    }
+  } else {
+    for (int i = tid; i < len; i += n)
+      dst[i] = gate[div_small(off + i, wf, inv_wf)] ? src[i] : 0.f;
+  }
+}
+
+template <int kCplx, bool kVec>
+__global__ void __launch_bounds__(kMaxWarps * 32) squelch_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) unsigned long long bars[kMaxStages];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int W = p.warps, T = W * 32;
+  const int rowf = p.n * kCplx, wf = p.window * kCplx, nwin = p.n / p.window;
+  const bool sliced = p.slice > 0;
+  const float inv_window = 1.f / (float)p.window;
+
+  // the CTA's piece: floats [s0, s0 + len) of row `row`, the whole row in
+  // rows mode
+  cg::cluster_group cluster = cg::this_cluster();
+  int row, rank = 0, s0 = 0, len = rowf;
+  if (sliced) {
+    rank = (int)cluster.block_rank();
+    row = (int)blockIdx.x / p.cluster;
+    s0 = rank * p.slice;
+    len = min(s0 + p.slice, rowf) - s0;
+  } else {
+    row = (int)blockIdx.x;
+  }
+  // shared memory: the stages; the window sums of a chunk, a slot for each
+  // warp of a window; the piece's window sums; each warp's powers (then
+  // gates) of the row's windows
+  const int tmax = p.chunk / wf + 2;
+  float* buf = smem;
+  float* wp = buf + p.stages * p.chunk;
+  float* acc = wp + tmax * W;
+  float* pdb = acc + (sliced ? p.slice : rowf) / wf + 2 + warp * nwin;
+  const unsigned bar0 = smem_addr(bars);
+  const float* src = p.x + (size_t)row * rowf + s0;
+  const int nch = (len + p.chunk - 1) / p.chunk;
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) mbar_init(bar0 + 8 * s, kVec ? 1 : T);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (kVec)   // the bulk copies go out before the barrier that publishes the init
+      for (int k = 0; k < min(p.stages, nch); ++k)
+        stage<kVec>(buf + k * p.chunk, src + k * p.chunk, min(p.chunk, len - k * p.chunk),
+                    bar0 + 8 * k, tid, T);
+  }
+  __syncthreads();
+  if (!kVec)
+    for (int k = 0; k < min(p.stages, nch); ++k)
+      stage<kVec>(buf + k * p.chunk, src + k * p.chunk, min(p.chunk, len - k * p.chunk),
+                  bar0 + 8 * k, tid, T);
+  // the row's state, read while the copies fly
+  const float level = p.level[row * p.level_stride];
+  bool open = p.open0[row] != 0;
+  int h = p.hang0[row];
+  const int g0 = s0 / wf;                     // first window the piece touches
+  const int nt = (s0 + len - 1) / wf - g0 + 1;
+  if (nch > 1)
+    for (int t = tid; t < nt; t += T) acc[t] = 0.f;
+
+  // 1. the piece's window sums; a piece longer than the stages hold is
+  // streamed through them chunk by chunk into running sums
+  for (int k = 0; k < nch; ++k) {
+    const int s = k % p.stages;
+    mbar_wait(bar0 + 8 * s, (k / p.stages) & 1);
+    const int a = s0 + k * p.chunk;
+    const int clen = min(p.chunk, len - k * p.chunk);
+    float* xs = buf + s * p.chunk;
+    window_sums<kCplx>(xs, clen, a - (a / wf) * wf, wf, tid, T,
+                       [&](int t, int w, float sum) { wp[t * W + w] = sum; });
+    __syncthreads();
+    if (nch > 1) {
+      const int tasks = (a - (a / wf) * wf + clen + wf - 1) / wf;
+      const int slots = max(1, group_of(tasks, T) >> 5);
+      const int t0 = a / wf - g0;
+      for (int t = tid; t < tasks; t += T) {
+        float sum = acc[t0 + t];
+        for (int w = 0; w < slots; ++w) sum = __fadd_rn(sum, wp[t * W + w]);
+        acc[t0 + t] = sum;
+      }
+      __syncthreads();   // acc settled; wp and the buffer are free
+      if (k + p.stages < nch) {
+        const int b = (k + p.stages) * p.chunk;
+        stage<kVec>(xs, src + b, min(p.chunk, len - b), bar0 + 8 * s, tid, T);
+      }
+    }
+  }
+  // the sum of window g0 + t over the piece
+  const int slots1 = max(1, group_of(nt, T) >> 5);
+  auto total = [&](int t) {
+    if (nch > 1) return acc[t];
+    float sum = 0.f;
+    for (int w = 0; w < slots1; ++w) sum = __fadd_rn(sum, wp[t * W + w]);
+    return sum;
+  };
+  const bool resident = nch <= p.stages;
+
+  if (!sliced && nwin == 1) {
+    // 2. rows mode, one window: its gate, in every thread
+    const float db = to_db(total(0), inv_window);
+    const bool above = db > level;   // false for NaN
+    h = above ? p.hang_windows : max(h - 1, 0);
+    const int gate = above || h > 0;
+    if (tid == 0) {
+      p.power_db[row] = db;
+      p.open_out[row] = gate;
+      p.hang_out[row] = h;
+    }
+    gated_store<kVec>(p.y + (size_t)row * rowf, resident ? buf : src, len, 0, wf, &gate,
+                      tid, T);
+    return;
+  }
+  if (!sliced) {
+    // 2. rows mode: every warp its own powers and gates of the row
+    for (int c = lane; c < nwin; c += 32) {
+      const float db = to_db(total(c), inv_window);
+      pdb[c] = db;
+      if (warp == 0) p.power_db[(size_t)row * nwin + c] = db;
+    }
+    __syncwarp();
+    hang_gates(pdb, nwin, level, p.hang_windows, open, h, lane);
+    if (tid == 0) {
+      p.open_out[row] = open ? 1 : 0;
+      p.hang_out[row] = h;
+    }
+    __syncwarp();
+    // 3. y, the CTA's threads over the row
+    gated_store<kVec>(p.y + (size_t)row * rowf, resident ? buf : src, len, 0, wf,
+                      reinterpret_cast<const int*>(pdb), tid, T);
+    return;
+  }
+
+  // 2. slice mode: the slice's window sums where the cluster can read them
+  const int C = p.cluster;
+  if (nch == 1)
+    for (int t = tid; t < nt; t += T) acc[t] = total(t);
+  cluster_arrive();
+  cluster_wait();
+  // 3. every warp: the row's powers, the CTAs a window spans in rank order
+  // through distributed shared memory (the same bits in every warp of the
+  // cluster), and the hang
+  for (int c = lane; c < nwin; c += 32) {
+    const int r_lo = (c * wf) / p.slice;
+    const int r_hi = min(((c + 1) * wf - 1) / p.slice, C - 1);
+    float sum = 0.f;
+    for (int r = r_lo; r <= r_hi; ++r) {
+      const float* pr = r == rank ? acc : cluster.map_shared_rank(acc, r);
+      sum = __fadd_rn(sum, pr[c - (r * p.slice) / wf]);
+    }
+    const float db = to_db(sum, inv_window);
+    pdb[c] = db;
+    if (warp == 0 && r_lo == rank) p.power_db[(size_t)row * nwin + c] = db;
+  }
+  __syncwarp();
+  cluster_arrive();   // this thread reads no other CTA's memory again
+  hang_gates(pdb, nwin, level, p.hang_windows, open, h, lane);
+  if (rank == 0 && tid == 0) {
+    p.open_out[row] = open ? 1 : 0;
+    p.hang_out[row] = h;
+  }
+  __syncwarp();
+  // 4. y of the slice, from the staged slice or (streamed) from x again
+  gated_store<kVec>(p.y + (size_t)row * rowf + s0, resident ? buf : src, len,
+                    s0 - g0 * wf, wf, reinterpret_cast<const int*>(pdb) + g0, tid, T);
+  cluster_wait();   // no CTA leaves while others may read its sums
+}
+
+// The dynamic shared memory of a plan: the stages, a chunk's window sums
+// (a slot a warp), the piece's window sums, each warp's window powers.
+// ops/squelch.py squelch_smem computes the same.
+long long smem_needed(int n, int window, int cplx, int warps, int slice, int chunk,
+                      int stages) {
+  const long long wf = (long long)window * cplx, nwin = n / window;
+  const long long piece = slice ? slice : (long long)n * cplx;
+  return 4 * ((long long)stages * chunk + (chunk / wf + 2) * warps + piece / wf + 2 +
+              warps * nwin);
+}
+
+template <int kCplx, bool kVec>
+cudaError_t launch(const Params& p, int grid, int smem, cudaStream_t stream) {
+  auto kernel = squelch_kernel<kCplx, kVec>;
+  static int smem_set[64] = {};   // the shared memory allowed, by device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64 || smem > smem_set[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    if (dev < 64) smem_set[dev] = smem;
+  }
+  if (p.cluster == 1) {   // a cluster launch costs more to start
+    kernel<<<grid, p.warps * 32, smem, stream>>>(p);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3((unsigned)p.warps * 32);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -278,45 +566,52 @@ cudaError_t launch(Params p, bool vec, size_t smem, cudaStream_t stream) {
 // window; level: (rows,) float32, or one value for every row
 // (level_per_row 0); open0, open_out: (rows,) bool as bytes; hang0,
 // hang_out: (rows,) int32; power_db: (rows, n / window) float32.  All
-// contiguous.
+// contiguous.  The plan (cluster .. vec) is squelch_plan's: slice 0 is
+// rows mode (a row a CTA, grid = rows), else slice mode (grid = rows *
+// cluster); warps a CTA;
+// chunk and stages size the staging ring, smem the dynamic shared memory;
+// vec 1 stages by bulk copies and stores 16 bytes at a time, 0 by 4-byte
+// copies.
 extern "C" int squelch_launch(const void* x, const void* level,
                               const void* open0, const void* hang0, void* y,
                               void* power_db, void* open_out, void* hang_out,
                               int rows, int n, int window, int cplx,
-                              int level_per_row, int hang_windows,
-                              void* stream) {
+                              int level_per_row, int hang_windows, int cluster,
+                              int warps, int slice, int chunk, int stages, int grid,
+                              int smem, int vec, void* stream) {
+  const long long rowf = (long long)n * cplx;
+  const long long piece = slice ? slice : rowf;
   if (rows <= 0 || window <= 0 || n <= 0 || n % window != 0 ||
-      (cplx != 1 && cplx != 2))
+      (cplx != 1 && cplx != 2) || warps < 1 || warps > kMaxWarps || stages < 1 ||
+      stages > kMaxStages || chunk <= 0 || chunk % cplx != 0 || rowf * rows >= (1ll << 31) ||
+      std::max(piece, (long long)chunk) + (long long)window * cplx >= (1ll << 22) ||
+      smem > kMaxSmemBytes ||
+      smem != smem_needed(n, window, cplx, warps, slice, chunk, stages))
     return (int)cudaErrorInvalidValue;
-  const int nwin = n / window;
-  const int wf = window * cplx;
-  const int rowf = n * cplx;
-  bool vec = rowf % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-             reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const int row_pad = (rowf + 3) & ~3;
-  int rpc = (rows + kTargetCtas - 1) / kTargetCtas;
-  rpc = std::min(std::min(rpc, kMaxRowsPerCta), std::max(1, kTileFloats / row_pad));
-  int tw = nwin;
-  if (row_pad > kTileFloats) {   // rpc == 1: walk the row in tiles
-    tw = std::max(1, kTileFloats / wf);
-    if (vec) {
-      const int m = 4 / gcd(wf, 4);   // 16-byte aligned tile starts
-      if (tw >= m) tw -= tw % m;
-      else vec = false;
-    }
+  if (slice == 0) {   // rows mode
+    if (cluster != 1 || grid != rows)
+      return (int)cudaErrorInvalidValue;
+  } else {            // slice mode
+    if ((cluster != 2 && cluster != 4 && cluster != 8) ||
+        slice % cplx != 0 || (long long)slice * cluster < rowf ||
+        (long long)slice * (cluster - 1) >= rowf || (long long)grid != (long long)rows * cluster)
+      return (int)cudaErrorInvalidValue;
   }
-  const int ld = (tw * wf + 3) & ~3;
-  const size_t smem = sizeof(float) *
-      ((size_t)rpc * (ld + 2 * (tw | 1)) + kWarps);
-  if (smem > (size_t)kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  if (vec && (rowf % 4 != 0 || chunk % 4 != 0 || slice % 4 != 0 ||
+              reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+              reinterpret_cast<uintptr_t>(y) % 16 != 0))
+    return (int)cudaErrorMisalignedAddress;
   Params p{static_cast<const float*>(x), static_cast<const float*>(level),
            static_cast<const unsigned char*>(open0),
            static_cast<const int*>(hang0), static_cast<float*>(y),
            static_cast<float*>(power_db),
            static_cast<unsigned char*>(open_out), static_cast<int*>(hang_out),
-           rows, n, window, cplx, level_per_row ? 1 : 0, hang_windows, rpc, tw};
+           rows, n, window, level_per_row ? 1 : 0, hang_windows,
+           cluster, warps, slice, chunk, stages};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = cplx == 2 ? launch<2>(p, vec, smem, s) : launch<1>(p, vec, smem, s);
+  const cudaError_t e =
+      cplx == 2 ? (vec ? launch<2, true>(p, grid, smem, s) : launch<2, false>(p, grid, smem, s))
+                : (vec ? launch<1, true>(p, grid, smem, s) : launch<1, false>(p, grid, smem, s));
   return (int)e;
 }
 

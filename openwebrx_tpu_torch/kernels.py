@@ -135,9 +135,11 @@ AGC = CudaKernel("agc.cu", "agc_launch",
                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _F, _P])
 
 # squelch_launch(x, level, open0, hang0, y, power_db, open, hang, rows, n,
-#                window, cplx, level_per_row, hang_windows, stream)
+#                window, cplx, level_per_row, hang_windows, then the plan of
+#                ops/squelch.py squelch_plan: cluster, warps, slice, chunk,
+#                stages, grid, smem, vec; stream)
 SQUELCH = CudaKernel("squelch.cu", "squelch_launch",
-                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+                     [_P, _P, _P, _P, _P, _P, _P, _P, *[_I] * 14, _P])
 # adpcm_seq_launch(samples, pred0, idx0, out, stride, pred, idx, rows, ns,
 #                  forced, diag, stream)
 ADPCM_SEQ = CudaKernel("adpcm_seq.cu", "adpcm_seq_launch",

@@ -3,9 +3,9 @@
 Counterpart of ``openwebrx_tpu/ops/squelch.py``.  On a CUDA tensor
 :func:`squelch_apply` is one launch of the hand-written kernel
 ``csrc/squelch.cu`` (window powers, dB, the hang recurrence over the
-windows and the gated output); on a CPU tensor it is
-:func:`squelch_apply_plain`, whose recurrence is a Python loop over the
-block's windows.  The kernel sums each window in another order than
+windows and the gated output) on the launch plan of :func:`squelch_plan`;
+on a CPU tensor it is :func:`squelch_apply_plain`, whose recurrence is a
+Python loop over the block's windows.  The kernel sums each window in another order than
 ``torch.mean``, so ``power_db`` agrees within a tolerance; the gates, the
 hang counters and the output agree exactly wherever the power is not
 within that tolerance of the level.
@@ -13,11 +13,156 @@ within that tolerance of the level.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from openwebrx_tpu_torch import check_on, resolve_device
 from openwebrx_tpu_torch.kernels import SQUELCH
+
+
+# The kernel's launch plan (csrc/squelch.cu checks it and runs it); the
+# constants are the best of a sweep of cuts on an H100 (PERF.md §6)
+SMS = 132                 # SMs of an H100 SXM; the wrapper passes the card's
+MAX_CLUSTER = 8           # CTAs a row: the portable cluster size
+MAX_WARPS = 8             # warps a CTA (csrc/squelch.cu kMaxWarps)
+ROW_FLOATS = 25000        # rows up to this many floats (100 KB: two CTAs an SM
+                          # fit) go whole, a row a CTA; longer ones are sliced,
+                          # no slice longer than this
+THREADS_AIM = 1 << 16     # rows mode: the threads of the grid, where rows are many
+MIN_VEC = 2               # a thread takes at least this many 16-byte vectors ...
+MAX_VEC = 10              # ... and at most this many, where the warps allow
+MAX_STAGES = 4            # stage buffers (csrc/squelch.cu kMaxStages)
+SMEM_FLOATS = (227 * 1024 - 256) // 4   # dynamic shared memory a CTA, floats
+MAX_OFFSET = 1 << 22      # floats: a piece or chunk plus a window stays under this
+
+
+class SquelchPlan(NamedTuple):
+    """How ``csrc/squelch.cu`` cuts one call.
+
+    Rows mode (``slice == 0``): a CTA a row, ``grid = rows``.  Slice
+    mode: each row is cut into ``cluster`` slices of ``slice`` floats (the
+    last one shorter), one CTA each, a thread-block cluster a row (``grid
+    = rows * cluster``).  A CTA
+    of ``warps`` warps stages its piece in chunks of ``chunk`` floats
+    through ``stages`` buffers, all of it at once unless it is longer
+    (``reread``: y is then written from a second read of x).  ``smem`` is
+    the dynamic shared memory in bytes; ``vec``: bulk copies and 16-byte
+    stores, else 4-byte copies (a row or slice start not 16-byte aligned).
+    """
+    cluster: int
+    warps: int
+    slice: int
+    chunk: int
+    stages: int
+    grid: int
+    smem: int
+    vec: bool
+
+    def piece(self, n: int, cplx: int) -> int:
+        """Floats a CTA owns."""
+        return self.slice or n * cplx
+
+    def reread(self, n: int, cplx: int) -> bool:
+        return self.piece(n, cplx) > self.stages * self.chunk
+
+
+def _pow2_ceil(v: int) -> int:
+    return 1 << max(0, int(v - 1).bit_length())
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def squelch_smem(n: int, window: int, cplx: int, warps: int, slice_: int, chunk: int,
+                 stages: int) -> int:
+    """Dynamic shared memory (bytes) of a plan, as ``csrc/squelch.cu``
+    ``smem_needed``: the stages, a chunk's window sums (a slot a warp), the
+    piece's window sums and each warp's window powers."""
+    wf, nwin = window * cplx, n // window
+    piece = slice_ or n * cplx
+    return 4 * (stages * chunk + (chunk // wf + 2) * warps + piece // wf + 2 + warps * nwin)
+
+
+def squelch_layout(rows: int, n: int, window: int, cplx: int, cluster: int = 1,
+                   warps: int = 0, sliced: bool = True, aligned: bool = True) -> SquelchPlan:
+    """The plan of a given cut: ``sliced`` False is rows mode (``cluster``
+    1), else ``cluster`` slices a row; ``warps`` 0 takes ``_warps``'.
+    Raises ValueError where the cut does not fit."""
+    rowf, wf, nwin = n * cplx, window * cplx, n // window
+    vec = bool(aligned) and rowf % 4 == 0
+    q = 4 if vec else cplx            # granularity of slices and chunks, floats
+    if sliced:
+        slice_ = _ceil(_ceil(rowf, cluster), q) * q
+        if (cluster - 1) * slice_ >= rowf:
+            raise ValueError(f"{cluster} slices of {slice_} floats overrun a row of {rowf}")
+        piece, grid = slice_, rows * cluster
+    else:
+        if cluster != 1:
+            raise ValueError("rows mode takes no cluster")
+        slice_, piece, grid = 0, rowf, rows
+    if not warps:
+        warps = _warps(piece, grid)
+    room = SMEM_FLOATS - (piece // wf + 2) * (warps + 1) - warps * nwin
+    if piece <= room:                  # one bulk copy of the whole piece
+        chunk, stages = piece, 1
+    else:                              # streamed: y from a second read of x
+        stages = MAX_STAGES
+        chunk = room // stages // q * q
+    smem = squelch_smem(n, window, cplx, warps, slice_, chunk, stages)
+    if (chunk < q or smem > 4 * SMEM_FLOATS or max(piece, chunk) + wf >= MAX_OFFSET
+            or not 1 <= warps <= MAX_WARPS or cluster not in ((2, 4, 8) if sliced else (1,))):
+        raise ValueError(f"no squelch plan for rows {rows}, n {n}, window {window} "
+                         f"({nwin} windows a row) in {cluster} slices")
+    return SquelchPlan(cluster, warps, slice_, chunk, stages, grid, smem, vec)
+
+
+def _warps(piece: int, ctas: int) -> int:
+    """Warps a CTA for a piece of ``piece`` floats in a grid of ``ctas``:
+    enough that no thread takes more than MAX_VEC 16-byte vectors, else
+    THREADS_AIM threads over the grid, but none that would take fewer than
+    MIN_VEC; 1 to MAX_WARPS."""
+    most = piece // (4 * 32 * MIN_VEC)
+    aim = min(THREADS_AIM // (32 * ctas), most)
+    return max(1, min(MAX_WARPS, max(_ceil(piece, 4 * 32 * MAX_VEC), aim)))
+
+
+def squelch_plan(rows: int, n: int, window: int, cplx: int, aligned: bool = True,
+                 sms: int = SMS) -> SquelchPlan:
+    """The launch plan of ``csrc/squelch.cu`` for ``rows`` rows of ``n``
+    samples (``cplx`` floats each) in windows of ``window``; ``aligned``:
+    x lies at a 16-byte aligned address; ``sms``: the card's SMs.
+
+    Rows of up to ROW_FLOATS floats go whole, a row a CTA (rows mode);
+    longer ones are cut into the fewest slices (a power of two up to
+    MAX_CLUSTER) that keep a slice within ROW_FLOATS and give at least
+    ``sms`` CTAs, a cluster a row.  A CTA takes the warps of ``_warps``, or
+    one warp (then more slices) where a row's windows are too many for the
+    shared memory.  Raises ValueError for a shape no plan fits."""
+    if rows < 1 or window < 1 or n < window or n % window or cplx not in (1, 2):
+        raise ValueError(f"no squelch plan for rows {rows}, n {n}, window {window}, "
+                         f"cplx {cplx}")
+    rowf = n * cplx
+    parts = max(_pow2_ceil(_ceil(rowf, ROW_FLOATS)), _pow2_ceil(_ceil(sms, rows)))
+    cuts = [(False, 1)] if rowf <= ROW_FLOATS else []
+    cuts += [(True, c) for c in (2, 4, 8) if c >= min(MAX_CLUSTER, parts)]
+    for sliced, cluster in cuts:   # many short windows: fewer warps, then slices
+        for warps in (0, 1):
+            try:
+                return squelch_layout(rows, n, window, cplx, cluster, warps, sliced=sliced,
+                                      aligned=aligned)
+            except ValueError:
+                pass
+    raise ValueError(f"no squelch plan for rows {rows}, n {n}, window {window}, "
+                     f"cplx {cplx}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def squelch_init(batch_shape=(), device="cuda"):
@@ -84,10 +229,14 @@ def squelch_apply(state, level_db: torch.Tensor, x: torch.Tensor,
     open_ = torch.empty(lead, dtype=torch.bool, device=dev)
     hang = torch.empty(lead, dtype=torch.int32, device=dev)
     if rows:
+        cplx = 2 if x.is_complex() else 1
+        plan = squelch_plan(rows, b, window, cplx, aligned=xc.data_ptr() % 16 == 0,
+                            sms=_sms(dev.index))
         SQUELCH.launch(dev, xc.data_ptr(), level.data_ptr(),
                        open0.contiguous().data_ptr(),
                        hang0.contiguous().data_ptr(), y.data_ptr(),
                        power_db.data_ptr(), open_.data_ptr(), hang.data_ptr(),
-                       rows, b, window, 2 if x.is_complex() else 1,
-                       int(per_row), hang_windows)
+                       rows, b, window, cplx, int(per_row), hang_windows,
+                       plan.cluster, plan.warps, plan.slice, plan.chunk, plan.stages,
+                       plan.grid, plan.smem, int(plan.vec))
     return (open_, hang), y, power_db

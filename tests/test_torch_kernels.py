@@ -586,6 +586,10 @@ class TestSquelch:
         (np.complex64, 16, 1536, 768),      # config #4's audio branch
         (np.float32, 5, 4801, 4801),        # real, unaligned
         (np.complex64, 3, 40000, 400),      # many windows, tiled
+        (np.complex64, 12, 15000, 5000),    # windows straddle CTAs, last slice shorter
+        (np.complex64, 2, 300000, 30000),   # the re-read branch
+        (np.complex64, 64, 9600, 3200),     # the server's NFM bank, sliced
+        (np.complex64, 1023, 600, 600),     # a ragged row count
     ])
     def test_kernel_matches_plain_on_card(self, cuda_device, dtype, rows, n, window):
         x, level = _squelch_scene(rows, n, window, seed=rows + n, dtype=dtype)
@@ -600,6 +604,136 @@ class TestSquelch:
         fin = ~pp.isnan()
         assert float((pk[fin] - pp[fin]).abs().max()) <= SQUELCH_DB_ATOL
         _gates_exact_where_clear(pk, pp, lt, yk, yp, sk, sp)
+
+
+    @pytest.mark.cuda
+    def test_kernel_repeats_and_carries_the_hang_on_card(self, cuda_device):
+        """Two launches on one input give the same bits; the hang carried
+        over three calls, state fed back, follows the plain chain; x at an
+        address 8 bytes off 16 takes the 4-byte path; config #1's 0-dim
+        state with one level."""
+        x, level = _squelch_scene(64, 2400, 800, seed=3)
+        st = _state(np.random.default_rng(3), 64, cuda_device)
+        xt = torch.from_numpy(x).to(cuda_device)
+        lt = torch.from_numpy(level).to(cuda_device)
+        a, b = (tsq.squelch_apply(st, lt, xt, 800) for _ in range(2))
+        assert torch.equal(_bits(a[1]), _bits(b[1]))
+        assert torch.equal(a[2].view(torch.int32), b[2].view(torch.int32))
+        xo = torch.empty(x.size * 2 + 2, device=cuda_device)[2:]
+        xo = xo.view(torch.complex64).view(xt.shape)
+        xo.copy_(xt)
+        assert not tsq.squelch_plan(64, 2400, 800, 2, aligned=False).vec
+        sk, yk, pk = tsq.squelch_apply(st, lt, xo, 800)
+        sp, yp, pp = tsq.squelch_apply_plain(st, lt, xt, 800)
+        _gates_exact_where_clear(pk, pp, lt, yk, yp, sk, sp)
+        scene = torch.zeros(8, 2400, dtype=torch.complex64, device=cuda_device)
+        scene[4:6, 600:1200] = 1.0
+        scene[6:8, 1800:2400] = 1.0
+        lvl = torch.tensor(-20.0, device=cuda_device)
+        sk = sp = tsq.squelch_init((8,), device=cuda_device)
+        for i in range(3):
+            xi = scene if i == 0 else torch.zeros_like(scene)
+            sk, yk, _ = tsq.squelch_apply(sk, lvl, xi, 600)
+            sp, yp, _ = tsq.squelch_apply_plain(sp, lvl, xi, 600)
+            assert torch.equal(sk[0], sp[0]) and torch.equal(sk[1], sp[1])
+            assert torch.equal(_bits(yk), _bits(yp))
+        x1 = torch.from_numpy(x[5]).to(cuda_device)
+        s0 = tsq.squelch_init((), device=cuda_device)
+        sk, yk, pk = tsq.squelch_apply(s0, lt[5], x1, 800)
+        sp, yp, pp = tsq.squelch_apply_plain(s0, lt[5], x1, 800)
+        assert sk[0].dim() == 0 and torch.equal(_bits(yk), _bits(yp))
+
+
+# The squelch kernel's launch plan at the shapes the paths give it
+# (chip_smoke.SQUELCH_PATH_CASES) and at its check shapes: real rows of an
+# odd length, 100-window rows, rows for the re-read branch, windows that
+# straddle CTAs, one-sample windows, x at an unaligned address
+PLAN_CASES = {"usb": (1024, 600, 600, 2), "nfm": (1024, 2400, 2400, 2),
+              "am": (2048, 600, 600, 2), "wfm": (128, 50000, 12500, 2),
+              "cfg1": (1, 4800, 2400, 2), "cfg2": (64, 600, 600, 2),
+              "cfg2 edge": (16, 600, 600, 2), "cfg4": (16, 1536, 768, 2),
+              "cfg3": (64, 2400, 800, 2), "cfg6": (256, 2400, 800, 2),
+              "cfg6 edge": (16, 2400, 800, 2), "server nfm": (64, 9600, 3200, 2),
+              "pod2": (512, 600, 600, 2), "real": (5, 4801, 4801, 1),
+              "tiled": (3, 40000, 400, 2), "re-read": (2, 300000, 30000, 2),
+              "straddle": (12, 15000, 5000, 2), "window 1": (16, 4800, 1, 2),
+              "unaligned": (64, 2400, 800, 2, False), "ragged": (1023, 600, 600, 2)}
+
+
+class TestSquelchPlan:
+    @pytest.mark.parametrize("label", list(PLAN_CASES))
+    def test_plan_covers_each_sample_once(self, label):
+        """Every float of every row lies in exactly one CTA's piece, and the
+        plan's shared memory is what the kernel computes for it."""
+        rows, n, window, cplx, *aligned = PLAN_CASES[label]
+        p = tsq.squelch_plan(rows, n, window, cplx, *aligned)
+        rowf = n * cplx
+        owner = np.zeros(rowf, dtype=np.int64)
+        if p.slice:
+            assert p.grid == rows * p.cluster
+            for rank in range(p.cluster):
+                owner[rank * p.slice:min((rank + 1) * p.slice, rowf)] += 1
+            assert (p.cluster - 1) * p.slice < rowf     # no CTA without a piece
+        else:
+            assert p.cluster == 1 and p.grid == rows
+            owner[:] += 1
+        assert (owner == 1).all()
+        piece = p.piece(n, cplx)
+        # a resident piece is staged whole; a streamed one in chunks
+        assert p.reread(n, cplx) == (piece > p.stages * p.chunk)
+        if not p.reread(n, cplx):
+            assert p.stages == 1 and p.chunk >= piece
+        assert p.smem == tsq.squelch_smem(n, window, cplx, p.warps, p.slice, p.chunk,
+                                          p.stages)
+
+    @pytest.mark.parametrize("label", list(PLAN_CASES))
+    def test_plan_limits(self, label):
+        """At most 8 CTAs a cluster and 8 warps a CTA, shared memory within
+        227 KB, and slices only for rows past ROW_FLOATS, with enough CTAs
+        to reach every SM there."""
+        rows, n, window, cplx, *aligned = PLAN_CASES[label]
+        p = tsq.squelch_plan(rows, n, window, cplx, *aligned)
+        assert p.cluster in (1, 2, 4, 8) and 1 <= p.warps <= 8
+        assert p.smem <= 227 * 1024 - 256 and 1 <= p.stages <= 4
+        if n * cplx <= tsq.ROW_FLOATS and label != "window 1":
+            assert p.slice == 0                       # a row a CTA
+        if p.slice:
+            assert p.slice <= max(tsq.ROW_FLOATS, -(-n * cplx // 8)) + 3
+            assert p.grid >= min(tsq.SMS, rows * 8)
+
+    @pytest.mark.parametrize("label", list(PLAN_CASES))
+    def test_four_byte_path_exactly_where_unaligned(self, label):
+        """The 4-byte copies are chosen exactly where a row, slice or chunk
+        start is not 16-byte aligned (an odd float count, or x off 16)."""
+        rows, n, window, cplx, *aligned = PLAN_CASES[label]
+        p = tsq.squelch_plan(rows, n, window, cplx, *aligned)
+        starts = [r * n * cplx + p.slice * k + p.chunk * j
+                  for r in range(min(rows, 3)) for k in range(p.cluster)
+                  for j in range(p.stages)]
+        aligned_all = (aligned or [True])[0] and all(f % 4 == 0 for f in starts) \
+            and (n * cplx) % 4 == 0
+        assert p.vec == aligned_all
+
+    def test_plan_cases_the_checks_need(self):
+        """The check shapes reach what they are for: a window straddling two
+        CTAs with a shorter last slice, the re-read branch streamed in
+        chunks with a shorter last one, the 4-byte path, one CTA a row for
+        a ragged row count."""
+        p = tsq.squelch_plan(12, 15000, 5000, 2)
+        wf = 10000
+        assert p.cluster > 1 and 30000 - (p.cluster - 1) * p.slice < p.slice
+        assert any(c * wf // p.slice != ((c + 1) * wf - 1) // p.slice for c in range(3))
+        p = tsq.squelch_plan(2, 300000, 30000, 2)
+        assert p.reread(300000, 2) and p.slice % p.chunk
+        assert not tsq.squelch_plan(5, 4801, 4801, 1).vec
+        assert not tsq.squelch_plan(64, 2400, 800, 2, aligned=False).vec
+        assert tsq.squelch_plan(1023, 600, 600, 2).grid == 1023
+
+    def test_plan_rejects_what_the_kernel_cannot_take(self):
+        for args in ((0, 600, 600, 2), (4, 600, 7, 2), (4, 600, 600, 3),
+                     (1, 1_000_000, 1, 2)):    # a million windows a row
+            with pytest.raises(ValueError):
+                tsq.squelch_plan(*args)
 
 
 @pytest.fixture
