@@ -27,9 +27,12 @@ Phases (any failure raises and the script exits non-zero):
    power is not that close to the level, every case launched twice with
    the same bits, plus real rows (the 4-byte path), rows of 100 windows,
    a window straddling two CTAs of a cluster with a shorter last slice,
-   rows long enough for the re-read branch, x at an unaligned address,
+   rows long enough for the re-read branch, rows of more windows than
+   shared memory holds and a row too long for slices (walked in chunks),
+   rows of 2^31 floats and more in all, x at an unaligned address,
    config #1's 0-dim state with one level and the hang carried over three
-   calls against the plain version's chain; the exact IMA row encoder
+   calls against the plain version's chain, and every plan's shared
+   memory as the kernel's own layout gives it; the exact IMA row encoder
    (``adpcm_encode_seq``) bit-identical at the waterfall's shape, on 16
    rows, on full-scale square waves and from random start states; phase
    8's per-rank shapes (squelch and AGC at (M / POD_RANKS, 600), and the
@@ -120,6 +123,7 @@ from __future__ import annotations
 
 import ast
 import concurrent.futures
+import ctypes
 import json
 import logging
 import os
@@ -433,6 +437,22 @@ def squelch_input(torch, gen, dev, shape, window, dtype=None):
              torch.randint(0, 3, (rows,), generator=gen, device=dev,
                            dtype=torch.int32).reshape(lead))
     return state, level.reshape(lead).contiguous(), x.reshape(shape).contiguous()
+
+
+def squelch_bursts(torch, gen, dev, shape, window):
+    """Seeded complex squelch input whose every window lies 10 dB above or
+    below its row's level at random (three in ten above), so that the hang
+    opens and runs out all along a row, however short its windows, and no
+    window is near its level; a random (open, hang) start state."""
+    rows, n = shape
+    level = torch.rand(rows, generator=gen, device=dev) * 60 - 60
+    above = torch.rand(rows, n // window, generator=gen, device=dev) < 0.3
+    amp = 10.0 ** ((level[:, None] + torch.where(above, 10.0, -10.0)) / 20)
+    phase = torch.rand(rows, n, generator=gen, device=dev) * (2 * np.pi)
+    x = torch.polar(amp.repeat_interleave(window, dim=1), phase)
+    state = (torch.rand(rows, generator=gen, device=dev) > 0.5,
+             torch.randint(0, 3, (rows,), generator=gen, device=dev, dtype=torch.int32))
+    return state, level, x.contiguous()
 
 
 def squelch_plan_of(x, window):
@@ -2075,12 +2095,23 @@ def main() -> int:
     squelch_in = {}                  # label: (state, level, x, window)
     squelch_err = 0.0
 
-    def squelch_case(label, st, level, x, window, expect=None):
+    smem_c = kernels.SQUELCH.function("squelch_smem_bytes", [ctypes.c_int] * 7,
+                                      ctypes.c_longlong)
+
+    def squelch_case(label, st, level, x, window, expect=None, rows=None):
+        """``rows``: the rows held against the plain version (all of them
+        by default)."""
         nonlocal squelch_err
+        plan, shape = squelch_plan_of(x, window), tuple(x.shape)
         sk, yk, pk = squelch.squelch_apply(st, level, x, window)
-        sp, yp, pp = squelch.squelch_apply_plain(st, level, x, window)
         # a second launch on the same input: the same bits
         sk2, yk2, pk2 = squelch.squelch_apply(st, level, x, window)
+        if rows is not None:
+            st, level, x = (st[0][rows], st[1][rows]), level[rows], x[rows]
+            sk, yk, pk, sk2, yk2, pk2 = (
+                (s[0][rows], s[1][rows]) if isinstance(s, tuple) else s[rows]
+                for s in (sk, yk, pk, sk2, yk2, pk2))
+        sp, yp, pp = squelch.squelch_apply_plain(st, level, x, window)
         torch.cuda.synchronize()
         check(torch.equal(bits(torch, yk), bits(torch, yk2))
               and torch.equal(pk.view(torch.int32), pk2.view(torch.int32))
@@ -2096,8 +2127,12 @@ def main() -> int:
                 and torch.equal(sk[0][clear], sp[0][clear])
                 and torch.equal(sk[1][clear], sp[1][clear]))
         share = float(clear.float().mean())
-        plan = squelch_plan_of(x, window)
-        log(f"[check] squelch {label} x{tuple(x.shape)} {str(x.dtype)[6:]} window "
+        cplx = 2 if x.is_complex() else 1
+        check(plan.smem == smem_c(x.shape[-1], window, cplx, plan.warps, plan.slice,
+                                  plan.chunk, plan.stages),
+              f"squelch {label}: ops/squelch.py squelch_smem disagrees with the kernel's "
+              f"layout for plan {tuple(plan)}")
+        log(f"[check] squelch {label} x{shape} {str(x.dtype)[6:]} window "
             f"{window}, plan {tuple(plan)}: power_db max_abs_err {err:.3e} dB (tolerance "
             f"{SQUELCH_DB_TOL}), NaN where the plain has NaN = {nan_same}; "
             f"{share:.3f} of rows clear of the level, identical there = {same}; "
@@ -2147,6 +2182,23 @@ def main() -> int:
     st, lv, x = squelch_input(torch, gen_sq, dev, (4800,), 2400)
     check(st[0].dim() == 0, "config #1's squelch state is 0-dim")
     squelch_case("cfg1 one level", st, lv.reshape(()), x, 2400)
+    # rows walked in chunks of whole windows, the hang carried from chunk
+    # to chunk: one-sample windows (more than shared memory holds); 100000
+    # windows a row, which no slices fit; a row too long for slices, in
+    # chunks of one 17000-sample window
+    for shape, window in (((16, 4800), 1), ((1, 100000), 1), ((1, 17_000_000), 17000)):
+        st, lv, x = squelch_bursts(torch, gen_sq, dev, shape, window)
+        plan = squelch_plan_of(x, window)
+        check(plan.walks(shape[-1], 2), f"squelch {shape}: plan {tuple(plan)} must walk")
+        squelch_case(f"walked {shape}", st, lv, x, window)
+    del st, lv, x
+    # 65540 rows of 32768 floats, 2^31 floats and more in all (64-bit
+    # offsets): the first and last four rows against the plain version
+    st, lv, x = squelch_input(torch, gen_sq, dev, (65540, 16384), 16384)
+    squelch_case("past 2^31 floats", st, lv, x, 16384,
+                 rows=torch.tensor([0, 1, 2, 3, 65536, 65537, 65538, 65539], device=dev))
+    del st, lv, x
+    torch.cuda.empty_cache()
     # the hang carried over three calls, the state fed back, against the
     # plain version's chain: a burst arms it, silence runs it out
     chain_x = torch.zeros(8, 2400, dtype=torch.complex64, device=dev)

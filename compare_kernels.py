@@ -28,7 +28,7 @@ Every run is printed and written to ``--out``.
 
 Usage (from the root of a checkout, on a machine with a card)::
 
-    python3 compare_kernels.py --other PATH [--rounds 1] [--only squelch]
+    python3 compare_kernels.py --other PATH [--rounds 1]
 """
 
 from __future__ import annotations
@@ -45,9 +45,8 @@ HERE = Path(__file__).resolve().parent
 WARM_ITERS = 50
 
 
-def child(root: str, only: str | None = None) -> int:
-    """Time the functions of the checkout at ``root`` (``only``: the
-    squelch alone); print one JSON line."""
+def child(root: str) -> int:
+    """Time the functions of the checkout at ``root``; print one JSON line."""
     sys.path[0] = root                     # that checkout's package, not ours
     spec = importlib.util.spec_from_file_location("smoke", HERE / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -73,59 +72,56 @@ def child(root: str, only: str | None = None) -> int:
                                smoke.COLD_COPIES, torch, flush)
         return {"ms": warm, "cold_ms": cold}
 
-    out = {"root": root}
-    if only not in (None, "squelch"):
-        raise ValueError(f"--only takes squelch, not {only!r}")
-    if only is None:
-        out.update(agc={}, adpcm_encode={})
-        for label, (pname, shape, chunk) in smoke.AGC_PATH_CASES.items():
-            st, x = smoke.agc_input(torch, gen, dev, shape)
-            prof = getattr(agc, pname)
-            out["agc"][label] = both(
-                lambda g, h, x, prof=prof, chunk=chunk: agc.agc_apply(
-                    (g, h), prof, x, chunk, device=dev), (*st, x))
-        for label, shape in smoke.ADPCM_PATH_SHAPES.items():
-            if shape in [tuple(v["shape"]) for v in out["adpcm_encode"].values()]:
-                continue                       # nfm: the same shape as usb
-            st, (x,) = smoke.adpcm_input(torch, gen, dev, shape)
-            out["adpcm_encode"][label] = dict(shape=list(shape), **both(
-                lambda p0, i0, x: adpcm.adpcm_encode((p0, i0), x), (*st, x)))
-        lanes = smoke.int16_audio(torch, gen, dev, 3072, 200)
-        prev = torch.randint(-32768, 32767, (lanes.shape[0],), generator=gen,
-                             device=dev, dtype=torch.int32)
-        idxs = torch.randint(0, 89, (lanes.shape[0],), generator=gen, device=dev,
-                             dtype=torch.int32)
-        out["encode_strides"] = both(
-            lambda s, p, i: adpcm.encode_strides(s, p, i, device=dev), (lanes, prev, idxs))
-        out["iir"] = {}
-        for label, shape in smoke.IIR_PATH_CASES.items():
-            st, x = smoke.iir_input(torch, gen, dev, shape)
-            co = (iir.dc_block_coeffs(12000.0) if label == "am"
-                  else iir.deemphasis_coeffs(48000.0, 150e-6))
-            out["iir"][label] = dict(shape=list(shape), **both(
-                lambda x0, y0, x, co=co: iir.first_order_apply((x0, y0), *co, x, device=dev),
-                (*st, x)))
-        seq = {label: (adpcm.adpcm_init((1,), device=dev),
-                       smoke.waterfall_row(torch, gen, dev, label))
-               for label in smoke.SEQ_REAL_ROWS}
-        for label, rows in (("audio", 1), ("16 rows", 16)):
-            seq[label] = ((torch.randint(-32768, 32767, (rows,), generator=gen, device=dev,
-                                         dtype=torch.int32),
-                           torch.randint(0, 89, (rows,), generator=gen, device=dev,
-                                         dtype=torch.int32)),
-                          smoke.int16_audio(torch, gen, dev, rows, smoke.SEQ_ROW))
-        out["adpcm_encode_seq"] = {}
-        for label, (st, x) in seq.items():
-            out["adpcm_encode_seq"][label] = dict(shape=list(x.shape), **both(
-                lambda p0, i0, x: adpcm.adpcm_encode_seq((p0, i0), x), (*st, x)))
-        st, x = seq["wf row"]
-        for forced in (1, 2):
-            if hasattr(adpcm, "encode_seq_kernel"):
-                fn = lambda p0, i0, x, f=forced: adpcm.encode_seq_kernel((p0, i0), x, f)
-            else:
-                fn = lambda p0, i0, x: adpcm.adpcm_encode_seq((p0, i0), x)
-            out["adpcm_encode_seq"][f"wf row, forced {forced}"] = dict(
-                shape=list(x.shape), **both(fn, (*st, x)))
+    out = {"root": root, "agc": {}, "adpcm_encode": {}}
+    for label, (pname, shape, chunk) in smoke.AGC_PATH_CASES.items():
+        st, x = smoke.agc_input(torch, gen, dev, shape)
+        prof = getattr(agc, pname)
+        out["agc"][label] = both(
+            lambda g, h, x, prof=prof, chunk=chunk: agc.agc_apply(
+                (g, h), prof, x, chunk, device=dev), (*st, x))
+    for label, shape in smoke.ADPCM_PATH_SHAPES.items():
+        if shape in [tuple(v["shape"]) for v in out["adpcm_encode"].values()]:
+            continue                       # nfm: the same shape as usb
+        st, (x,) = smoke.adpcm_input(torch, gen, dev, shape)
+        out["adpcm_encode"][label] = dict(shape=list(shape), **both(
+            lambda p0, i0, x: adpcm.adpcm_encode((p0, i0), x), (*st, x)))
+    lanes = smoke.int16_audio(torch, gen, dev, 3072, 200)
+    prev = torch.randint(-32768, 32767, (lanes.shape[0],), generator=gen,
+                         device=dev, dtype=torch.int32)
+    idxs = torch.randint(0, 89, (lanes.shape[0],), generator=gen, device=dev,
+                         dtype=torch.int32)
+    out["encode_strides"] = both(
+        lambda s, p, i: adpcm.encode_strides(s, p, i, device=dev), (lanes, prev, idxs))
+    out["iir"] = {}
+    for label, shape in smoke.IIR_PATH_CASES.items():
+        st, x = smoke.iir_input(torch, gen, dev, shape)
+        co = (iir.dc_block_coeffs(12000.0) if label == "am"
+              else iir.deemphasis_coeffs(48000.0, 150e-6))
+        out["iir"][label] = dict(shape=list(shape), **both(
+            lambda x0, y0, x, co=co: iir.first_order_apply((x0, y0), *co, x, device=dev),
+            (*st, x)))
+    seq = {}
+    for label in smoke.SEQ_REAL_ROWS:      # one row each, the 8.192 MS/s rows two
+        x = smoke.waterfall_row(torch, gen, dev, label)
+        seq[label] = (adpcm.adpcm_init(tuple(x.shape[:-1]), device=dev), x)
+    for label, rows in (("audio", 1), ("16 rows", 16)):
+        seq[label] = ((torch.randint(-32768, 32767, (rows,), generator=gen, device=dev,
+                                     dtype=torch.int32),
+                       torch.randint(0, 89, (rows,), generator=gen, device=dev,
+                                     dtype=torch.int32)),
+                      smoke.int16_audio(torch, gen, dev, rows, smoke.SEQ_ROW))
+    out["adpcm_encode_seq"] = {}
+    for label, (st, x) in seq.items():
+        out["adpcm_encode_seq"][label] = dict(shape=list(x.shape), **both(
+            lambda p0, i0, x: adpcm.adpcm_encode_seq((p0, i0), x), (*st, x)))
+    st, x = seq["wf row"]
+    for forced in (1, 2):
+        if hasattr(adpcm, "encode_seq_kernel"):
+            fn = lambda p0, i0, x, f=forced: adpcm.encode_seq_kernel((p0, i0), x, f)
+        else:
+            fn = lambda p0, i0, x: adpcm.adpcm_encode_seq((p0, i0), x)
+        out["adpcm_encode_seq"][f"wf row, forced {forced}"] = dict(
+            shape=list(x.shape), **both(fn, (*st, x)))
     out["squelch"] = {}
     sq_in = {label: (*smoke.squelch_input(torch, gen, dev, shape, window), window)
              for label, (shape, window) in smoke.SQUELCH_PATH_CASES.items()}
@@ -153,11 +149,10 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=1,
                     help="rounds of other, this, this, other")
     ap.add_argument("--out", default="build/compare_kernels.json")
-    ap.add_argument("--only", choices=["squelch"], help="time the squelch alone")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        return child(args.child, args.only)
+        return child(args.child)
     if not args.other:
         ap.error("--other is required")
     here, other = str(HERE), str(Path(args.other).resolve())
@@ -169,8 +164,7 @@ def main() -> int:
     for _ in range(args.rounds):
         for root in (other, here, here, other):
             res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                  "--child", root, *(["--only", args.only] if args.only
-                                                     else [])], capture_output=True,
+                                  "--child", root], capture_output=True,
                                  text=True, timeout=900)
             if res.returncode != 0:
                 print(res.stdout + res.stderr, file=sys.stderr)
@@ -180,7 +174,7 @@ def main() -> int:
             runs.append(rec)
             print(f"[compare] run {len(runs)} {rec['side']}: " + json.dumps(
                 {k: rec[k] for k in ("agc", "adpcm_encode", "encode_strides", "iir",
-                                     "adpcm_encode_seq", "squelch") if k in rec}),
+                                     "adpcm_encode_seq", "squelch")}),
                 flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps({"card": smi, "runs": runs}, indent=1))

@@ -17,27 +17,35 @@
 // the bound, so what counts there is how short each CTA's chain from its
 // first byte landed to its last store is.
 //
-// Design.  The launch plan (cluster, warps, slice, chunk,
-// stages, grid, shared memory, copy width) comes from ops/squelch.py
-// squelch_plan; this file checks it and runs it.  Two shapes of work:
-//   - Rows (rows of up to 100 KB, every path but WFM): a CTA a row, no
-//     cluster.
+// Design.  The launch plan (cluster, warps, slice, chunk, stages, copy
+// width) comes from ops/squelch.py squelch_plan; this file checks it and
+// runs it.  Three shapes of work:
+//   - Registers (rows of up to 64 KB in whole 16-byte vectors a window,
+//     every path but WFM and the server's NFM bank): a CTA a row, each
+//     thread holding its share of one window in registers, loaded straight
+//     from x (squelch_regs_kernel).  At rows of a few KB the set-up of a
+//     stage buffer and its mbarrier is most of a CTA's time.
+//   - Rows (other rows of up to 100 KB): a CTA a row, no cluster, staged.
+//     A row whose windows do not all fit in shared memory (tens of
+//     thousands of short windows, or a row too long for slices) is walked
+//     in chunks of whole windows through two stages, the hang carried
+//     from chunk to chunk.
 //   - Slices (longer rows: the WFM bank's 400 KB): a row is cut into C
 //     slices (C in 2, 4, 8), one CTA each, launched as a thread-block
 //     cluster of C.  A window may straddle two CTAs.
-// In both, thread 0 stages the CTA's piece with one TMA 1-D bulk copy
+// Staged, thread 0 stages the CTA's piece with one TMA 1-D bulk copy
 // (cp.async.bulk on an mbarrier) and the other threads wait on the
 // mbarrier, spending no instruction on addresses.  The window sums take
-// a power-of-two group of threads a window, 16 bytes a shared-memory load
-// where the windows lie on 16-byte edges, a butterfly within each warp,
-// and leave one partial a warp in shared memory in a fixed place: no
-// block-wide barrier inside.  After one __syncthreads:
-//   - rows mode: every warp adds the partials in warp order and runs the
-//     hang itself (with one window a row, every thread decides its gate;
-//     with more, the recurrence in closed form over 32 windows at a time:
-//     a ballot of the windows above the level and the distance to the last
-//     of them),
-//     so the gates need no second barrier; then all threads write y;
+// a power-of-two group of threads a window, 16 bytes a load where the
+// windows lie on 16-byte edges, a butterfly within each warp, and leave
+// one partial a warp in shared memory in a fixed place: no block-wide
+// barrier inside.  After one __syncthreads:
+//   - registers and rows mode: every warp adds the partials in warp order
+//     and runs the hang itself (with one window a row or chunk, every
+//     thread decides its gate; with more, the recurrence in closed form
+//     over 32 windows at a time: a ballot of the windows above the level
+//     and the distance to the last of them), so the gates need no second
+//     barrier; then all threads write y, from registers or the stage;
 //   - slice mode: the CTA's sums go where the cluster reads them, a
 //     cluster barrier, and every warp adds each window's sums over the
 //     CTAs it spans in rank order through distributed shared memory (the
@@ -100,9 +108,30 @@ struct Params {
   int cluster;             // CTAs a row (slice mode), 1 in rows mode
   int warps;               // warps a CTA
   int slice;               // slice mode: floats of a row a CTA owns; 0 in rows mode
-  int chunk;               // floats a stage buffer holds
+  int chunk;               // floats a stage buffer holds (rows mode: whole windows)
   int stages;              // stage buffers
 };
+
+// The dynamic shared memory of a plan, in floats from its start: the
+// stages; a chunk's window sums, a slot for each warp of a window (wp);
+// slice mode: the piece's window sums (acc); each warp's powers, then
+// gates, of the windows it decides (pdb: the row's in slice mode, a
+// chunk's in rows mode).  ops/squelch.py squelch_smem mirrors `end`.
+struct Layout {
+  long long wp, acc, pdb, per_warp, end;
+};
+
+__host__ __device__ inline Layout layout_of(int n, int window, int cplx, int warps, int slice,
+                                            int chunk, int stages) {
+  const long long wf = (long long)window * cplx;
+  Layout l;
+  l.wp = (long long)stages * chunk;
+  l.acc = l.wp + (chunk / wf + 2) * warps;
+  l.pdb = l.acc + (slice ? slice / wf + 2 : 0);
+  l.per_warp = slice ? n / window : chunk / wf;
+  l.end = l.pdb + warps * l.per_warp;
+  return l;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -188,6 +217,8 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return r;
 }
 
+__device__ __forceinline__ float inv_window_of(int window) { return 1.f / (float)window; }
+
 __device__ __forceinline__ float to_db(float sum, float inv_window) {
   return __fmul_rn(10.f, log10f(max_nan(__fmul_rn(sum, inv_window), 1e-30f)));
 }
@@ -203,7 +234,7 @@ __device__ __forceinline__ float power_of(const float* s) {
 
 // The threads that sum one window when `tasks` windows share n threads:
 // a power of two, whole warps only when there are fewer windows than warps.
-__device__ __forceinline__ int group_of(int tasks, int n) {
+__host__ __device__ __forceinline__ int group_of(int tasks, int n) {
   int sub = 1;
   while (sub < n && tasks * sub * 2 <= n) sub <<= 1;
   return sub;
@@ -354,6 +385,86 @@ __device__ __forceinline__ void gated_store(float* dst, const float* src, int le
   }
 }
 
+// Rows mode with the row in registers (plan stages 0): group_of(nwin, T)
+// threads a window, each holding up to kRegs of its window's 16-byte
+// vectors, loaded straight from x; the sums as window_sums takes them,
+// one __syncthreads, every warp its gates as the staged kernel does, and
+// y stored from the registers.  No stage buffer, no mbarrier: at rows of
+// a few KB their set-up is most of a CTA's time.
+template <int kCplx, int kRegs>
+__global__ void __launch_bounds__(kMaxWarps * 32) squelch_regs_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int W = p.warps, T = W * 32;
+  const int rowf = p.n * kCplx, wf = p.window * kCplx, nwin = p.n / p.window;
+  const int row = (int)blockIdx.x;
+  const int m = wf >> 2;                         // vectors a window
+  const int sub = group_of(nwin, T);             // nwin * sub <= T
+  const int task = tid >> (__ffs(sub) - 1), part = tid & (sub - 1);
+  const bool mine = task < nwin;
+  const size_t at = (size_t)row * (rowf >> 2) + (size_t)task * m;
+  const float4* x4 = reinterpret_cast<const float4*>(p.x) + at;
+  float4 v[kRegs];
+#pragma unroll
+  for (int j = 0; j < kRegs; ++j) {
+    const int i = part + j * sub;
+    v[j] = mine && i < m ? __ldg(x4 + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // the row's state, read while the loads fly
+  const float level = p.level[row * p.level_stride];
+  bool open = p.open0[row] != 0;
+  int h = p.hang0[row];
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kRegs; j += 2) {
+    s0 = __fadd_rn(s0, power4<kCplx>(v[j]));
+    s1 = __fadd_rn(s1, power4<kCplx>(v[j + 1]));
+  }
+  float s = __fadd_rn(s0, s1);
+  for (int o = min(sub, 32) >> 1; o > 0; o >>= 1)
+    s = __fadd_rn(s, __shfl_xor_sync(kFull, s, o));
+  const Layout lay = layout_of(p.n, p.window, kCplx, W, 0, p.chunk, 0);
+  float* wp = smem + lay.wp;
+  if (mine && (part & 31) == 0) wp[task * W + (part >> 5)] = s;
+  __syncthreads();
+  const int slots = max(1, sub >> 5);
+  auto total = [&](int t) {
+    float sum = 0.f;
+    for (int w = 0; w < slots; ++w) sum = __fadd_rn(sum, wp[t * W + w]);
+    return sum;
+  };
+  int gate;
+  if (nwin == 1) {   // one window: its gate, in every thread
+    const float db = to_db(total(0), inv_window_of(p.window));
+    const bool above = db > level;   // false for NaN
+    h = above ? p.hang_windows : max(h - 1, 0);
+    open = above || h > 0;
+    gate = open;
+    if (tid == 0) p.power_db[row] = db;
+  } else {
+    float* pdb = smem + lay.pdb + warp * lay.per_warp;
+    for (int c = lane; c < nwin; c += 32) {
+      const float db = to_db(total(c), inv_window_of(p.window));
+      pdb[c] = db;
+      if (warp == 0) p.power_db[(size_t)row * nwin + c] = db;
+    }
+    __syncwarp();
+    hang_gates(pdb, nwin, level, p.hang_windows, open, h, lane);
+    __syncwarp();
+    gate = mine ? reinterpret_cast<const int*>(pdb)[task] : 0;
+  }
+  if (tid == 0) {
+    p.open_out[row] = open ? 1 : 0;
+    p.hang_out[row] = h;
+  }
+  float4* y4 = reinterpret_cast<float4*>(p.y) + at;
+#pragma unroll
+  for (int j = 0; j < kRegs; ++j) {
+    const int i = part + j * sub;
+    if (mine && i < m) y4[i] = gate ? v[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
 template <int kCplx, bool kVec>
 __global__ void __launch_bounds__(kMaxWarps * 32) squelch_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -362,7 +473,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) squelch_kernel(Params p) {
   const int W = p.warps, T = W * 32;
   const int rowf = p.n * kCplx, wf = p.window * kCplx, nwin = p.n / p.window;
   const bool sliced = p.slice > 0;
-  const float inv_window = 1.f / (float)p.window;
+  const float inv_window = inv_window_of(p.window);
 
   // the CTA's piece: floats [s0, s0 + len) of row `row`, the whole row in
   // rows mode
@@ -376,14 +487,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32) squelch_kernel(Params p) {
   } else {
     row = (int)blockIdx.x;
   }
-  // shared memory: the stages; the window sums of a chunk, a slot for each
-  // warp of a window; the piece's window sums; each warp's powers (then
-  // gates) of the row's windows
-  const int tmax = p.chunk / wf + 2;
+  const Layout lay = layout_of(p.n, p.window, kCplx, W, p.slice, p.chunk, p.stages);
   float* buf = smem;
-  float* wp = buf + p.stages * p.chunk;
-  float* acc = wp + tmax * W;
-  float* pdb = acc + (sliced ? p.slice : rowf) / wf + 2 + warp * nwin;
+  float* wp = smem + lay.wp;
+  float* acc = smem + lay.acc;
+  float* pdb = smem + lay.pdb + warp * lay.per_warp;
   const unsigned bar0 = smem_addr(bars);
   const float* src = p.x + (size_t)row * rowf + s0;
   const int nch = (len + p.chunk - 1) / p.chunk;
@@ -404,6 +512,64 @@ __global__ void __launch_bounds__(kMaxWarps * 32) squelch_kernel(Params p) {
   const float level = p.level[row * p.level_stride];
   bool open = p.open0[row] != 0;
   int h = p.hang0[row];
+  auto put_sum = [&](int t, int w, float sum) { wp[t * W + w] = sum; };
+
+  if (!sliced) {
+    // rows mode: chunk by chunk (one when the row fits), the chunk's window
+    // sums, then in every warp their powers and gates from the state the
+    // last chunk left, and y of the chunk from its stage
+    const int tw = p.chunk / wf;
+    for (int k = 0; k < nch; ++k) {
+      const int s = k % p.stages;
+      mbar_wait(bar0 + 8 * s, (k / p.stages) & 1);
+      const int clen = min(p.chunk, len - k * p.chunk);
+      const int nt = clen / wf;
+      float* xs = buf + s * p.chunk;
+      window_sums<kCplx>(xs, clen, 0, wf, tid, T, put_sum);
+      __syncthreads();
+      const int slots = max(1, group_of(nt, T) >> 5);
+      auto total = [&](int t) {
+        float sum = 0.f;
+        for (int w = 0; w < slots; ++w) sum = __fadd_rn(sum, wp[t * W + w]);
+        return sum;
+      };
+      float* db_out = p.power_db + (size_t)row * nwin + (size_t)k * tw;
+      float* y = p.y + (size_t)row * rowf + (size_t)k * p.chunk;
+      if (nt == 1) {   // one window: its gate, in every thread
+        const float db = to_db(total(0), inv_window);
+        const bool above = db > level;   // false for NaN
+        h = above ? p.hang_windows : max(h - 1, 0);
+        open = above || h > 0;
+        const int gate = open;
+        if (tid == 0) db_out[0] = db;
+        gated_store<kVec>(y, xs, clen, 0, wf, &gate, tid, T);
+      } else {
+        for (int c = lane; c < nt; c += 32) {
+          const float db = to_db(total(c), inv_window);
+          pdb[c] = db;
+          if (warp == 0) db_out[c] = db;
+        }
+        __syncwarp();
+        hang_gates(pdb, nt, level, p.hang_windows, open, h, lane);
+        __syncwarp();
+        gated_store<kVec>(y, xs, clen, 0, wf, reinterpret_cast<const int*>(pdb), tid, T);
+      }
+      if (k + 1 < nch) {
+        __syncthreads();   // wp, the gates and this stage are free
+        if (k + p.stages < nch) {
+          const int b = (k + p.stages) * p.chunk;
+          stage<kVec>(xs, src + b, min(p.chunk, len - b), bar0 + 8 * s, tid, T);
+        }
+      }
+    }
+    if (tid == 0) {
+      p.open_out[row] = open ? 1 : 0;
+      p.hang_out[row] = h;
+    }
+    return;
+  }
+
+  // slice mode
   const int g0 = s0 / wf;                     // first window the piece touches
   const int nt = (s0 + len - 1) / wf - g0 + 1;
   if (nch > 1)
@@ -417,8 +583,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) squelch_kernel(Params p) {
     const int a = s0 + k * p.chunk;
     const int clen = min(p.chunk, len - k * p.chunk);
     float* xs = buf + s * p.chunk;
-    window_sums<kCplx>(xs, clen, a - (a / wf) * wf, wf, tid, T,
-                       [&](int t, int w, float sum) { wp[t * W + w] = sum; });
+    window_sums<kCplx>(xs, clen, a - (a / wf) * wf, wf, tid, T, put_sum);
     __syncthreads();
     if (nch > 1) {
       const int tasks = (a - (a / wf) * wf + clen + wf - 1) / wf;
@@ -436,55 +601,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32) squelch_kernel(Params p) {
       }
     }
   }
-  // the sum of window g0 + t over the piece
-  const int slots1 = max(1, group_of(nt, T) >> 5);
-  auto total = [&](int t) {
-    if (nch > 1) return acc[t];
-    float sum = 0.f;
-    for (int w = 0; w < slots1; ++w) sum = __fadd_rn(sum, wp[t * W + w]);
-    return sum;
-  };
   const bool resident = nch <= p.stages;
-
-  if (!sliced && nwin == 1) {
-    // 2. rows mode, one window: its gate, in every thread
-    const float db = to_db(total(0), inv_window);
-    const bool above = db > level;   // false for NaN
-    h = above ? p.hang_windows : max(h - 1, 0);
-    const int gate = above || h > 0;
-    if (tid == 0) {
-      p.power_db[row] = db;
-      p.open_out[row] = gate;
-      p.hang_out[row] = h;
-    }
-    gated_store<kVec>(p.y + (size_t)row * rowf, resident ? buf : src, len, 0, wf, &gate,
-                      tid, T);
-    return;
-  }
-  if (!sliced) {
-    // 2. rows mode: every warp its own powers and gates of the row
-    for (int c = lane; c < nwin; c += 32) {
-      const float db = to_db(total(c), inv_window);
-      pdb[c] = db;
-      if (warp == 0) p.power_db[(size_t)row * nwin + c] = db;
-    }
-    __syncwarp();
-    hang_gates(pdb, nwin, level, p.hang_windows, open, h, lane);
-    if (tid == 0) {
-      p.open_out[row] = open ? 1 : 0;
-      p.hang_out[row] = h;
-    }
-    __syncwarp();
-    // 3. y, the CTA's threads over the row
-    gated_store<kVec>(p.y + (size_t)row * rowf, resident ? buf : src, len, 0, wf,
-                      reinterpret_cast<const int*>(pdb), tid, T);
-    return;
-  }
 
   // 2. slice mode: the slice's window sums where the cluster can read them
   const int C = p.cluster;
-  if (nch == 1)
-    for (int t = tid; t < nt; t += T) acc[t] = total(t);
+  if (nch == 1) {
+    const int slots = max(1, group_of(nt, T) >> 5);
+    for (int t = tid; t < nt; t += T) {
+      float sum = 0.f;
+      for (int w = 0; w < slots; ++w) sum = __fadd_rn(sum, wp[t * W + w]);
+      acc[t] = sum;
+    }
+  }
   cluster_arrive();
   cluster_wait();
   // 3. every warp: the row's powers, the CTAs a window spans in rank order
@@ -516,20 +644,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32) squelch_kernel(Params p) {
   cluster_wait();   // no CTA leaves while others may read its sums
 }
 
-// The dynamic shared memory of a plan: the stages, a chunk's window sums
-// (a slot a warp), the piece's window sums, each warp's window powers.
-// ops/squelch.py squelch_smem computes the same.
-long long smem_needed(int n, int window, int cplx, int warps, int slice, int chunk,
-                      int stages) {
-  const long long wf = (long long)window * cplx, nwin = n / window;
-  const long long piece = slice ? slice : (long long)n * cplx;
-  return 4 * ((long long)stages * chunk + (chunk / wf + 2) * warps + piece / wf + 2 +
-              warps * nwin);
-}
-
-template <int kCplx, bool kVec>
+template <int kCplx, bool kVec, int kRegs>
 cudaError_t launch(const Params& p, int grid, int smem, cudaStream_t stream) {
-  auto kernel = squelch_kernel<kCplx, kVec>;
+  void (*kernel)(Params);
+  if constexpr (kRegs > 0) kernel = squelch_regs_kernel<kCplx, kRegs>;
+  else kernel = squelch_kernel<kCplx, kVec>;
   static int smem_set[64] = {};   // the shared memory allowed, by device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -562,41 +681,63 @@ cudaError_t launch(const Params& p, int grid, int smem, cudaStream_t stream) {
 
 }  // namespace
 
+// The 16-byte vectors a thread holds in registers mode: the least of 4,
+// 8 and 16 that covers its share of its window; 0 where the row does not
+// fit (a window not of whole vectors, more windows than threads, or
+// more than 16 vectors a thread).
+int regs_needed(int n, int window, int cplx, int warps) {
+  const long long wf = (long long)window * cplx, nwin = n / window, t = 32ll * warps;
+  if (wf % 4 != 0 || nwin > t) return 0;
+  const long long sub = group_of((int)nwin, (int)t);
+  const long long per = (wf / 4 + sub - 1) / sub;
+  return per <= 4 ? 4 : per <= 8 ? 8 : per <= 16 ? 16 : 0;
+}
+
+// The dynamic shared memory (bytes) a plan takes: ops/squelch.py
+// squelch_smem must give the same (a check on the card holds it).
+extern "C" long long squelch_smem_bytes(int n, int window, int cplx, int warps, int slice,
+                                        int chunk, int stages) {
+  return 4 * layout_of(n, window, cplx, warps, slice, chunk, stages).end;
+}
+
 // x, y: (rows, n) complex64 (cplx 2) or float32 (cplx 1), n a multiple of
 // window; level: (rows,) float32, or one value for every row
 // (level_per_row 0); open0, open_out: (rows,) bool as bytes; hang0,
 // hang_out: (rows,) int32; power_db: (rows, n / window) float32.  All
 // contiguous.  The plan (cluster .. vec) is squelch_plan's: slice 0 is
-// rows mode (a row a CTA, grid = rows), else slice mode (grid = rows *
-// cluster); warps a CTA;
-// chunk and stages size the staging ring, smem the dynamic shared memory;
-// vec 1 stages by bulk copies and stores 16 bytes at a time, 0 by 4-byte
-// copies.
+// rows mode (a CTA a row: stages 0 holds it in registers, chunk the row;
+// else in chunks of whole windows), else slice mode (cluster CTAs a
+// row); warps a CTA; chunk and stages size the staging ring; vec 1
+// stages by bulk copies and stores 16 bytes at a time, 0 by 4-byte
+// copies.  The grid and the shared memory follow from the plan.
 extern "C" int squelch_launch(const void* x, const void* level,
                               const void* open0, const void* hang0, void* y,
                               void* power_db, void* open_out, void* hang_out,
                               int rows, int n, int window, int cplx,
                               int level_per_row, int hang_windows, int cluster,
-                              int warps, int slice, int chunk, int stages, int grid,
-                              int smem, int vec, void* stream) {
-  const long long rowf = (long long)n * cplx;
-  const long long piece = slice ? slice : rowf;
+                              int warps, int slice, int chunk, int stages, int vec,
+                              void* stream) {
+  const long long rowf = (long long)n * cplx, wf = (long long)window * cplx;
   if (rows <= 0 || window <= 0 || n <= 0 || n % window != 0 ||
-      (cplx != 1 && cplx != 2) || warps < 1 || warps > kMaxWarps || stages < 1 ||
-      stages > kMaxStages || chunk <= 0 || chunk % cplx != 0 || rowf * rows >= (1ll << 31) ||
-      std::max(piece, (long long)chunk) + (long long)window * cplx >= (1ll << 22) ||
-      smem > kMaxSmemBytes ||
-      smem != smem_needed(n, window, cplx, warps, slice, chunk, stages))
+      (cplx != 1 && cplx != 2) || rowf >= (1ll << 31) || warps < 1 || warps > kMaxWarps ||
+      stages < 0 || stages > kMaxStages || chunk <= 0 || chunk % cplx != 0 || slice < 0)
     return (int)cudaErrorInvalidValue;
-  if (slice == 0) {   // rows mode
-    if (cluster != 1 || grid != rows)
+  const long long smem = squelch_smem_bytes(n, window, cplx, warps, slice, chunk, stages);
+  if (smem + 8 * kMaxStages > kMaxSmemBytes) return (int)cudaErrorInvalidValue;   // + the mbarriers
+  long long grid = rows;
+  const int regs = stages == 0 ? regs_needed(n, window, cplx, warps) : 0;
+  if (stages == 0 && (slice != 0 || !vec || chunk != rowf || regs == 0))
+    return (int)cudaErrorInvalidValue;
+  if (slice == 0) {   // rows mode: chunks of whole windows, one for the row or fewer floats
+    if (cluster != 1 || chunk % wf != 0 || chunk > rowf) return (int)cudaErrorInvalidValue;
+  } else {            // slice mode: y is stored at slice offsets below 2^22 floats
+    if ((cluster != 2 && cluster != 4 && cluster != 8) || slice % cplx != 0 ||
+        (long long)slice * cluster < rowf || (long long)slice * (cluster - 1) >= rowf ||
+        slice + wf >= (1ll << 22))
       return (int)cudaErrorInvalidValue;
-  } else {            // slice mode
-    if ((cluster != 2 && cluster != 4 && cluster != 8) ||
-        slice % cplx != 0 || (long long)slice * cluster < rowf ||
-        (long long)slice * (cluster - 1) >= rowf || (long long)grid != (long long)rows * cluster)
-      return (int)cudaErrorInvalidValue;
+    grid = (long long)rows * cluster;
   }
+  if (grid >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   if (vec && (rowf % 4 != 0 || chunk % 4 != 0 || slice % 4 != 0 ||
               reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
               reinterpret_cast<uintptr_t>(y) % 16 != 0))
@@ -609,10 +750,20 @@ extern "C" int squelch_launch(const void* x, const void* level,
            rows, n, window, level_per_row ? 1 : 0, hang_windows,
            cluster, warps, slice, chunk, stages};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      cplx == 2 ? (vec ? launch<2, true>(p, grid, smem, s) : launch<2, false>(p, grid, smem, s))
-                : (vec ? launch<1, true>(p, grid, smem, s) : launch<1, false>(p, grid, smem, s));
-  return (int)e;
+  const int g = (int)grid, m = (int)smem;
+  if (cplx == 2)
+    switch (regs) {
+      case 4: return (int)launch<2, true, 4>(p, g, m, s);
+      case 8: return (int)launch<2, true, 8>(p, g, m, s);
+      case 16: return (int)launch<2, true, 16>(p, g, m, s);
+      default: return (int)(vec ? launch<2, true, 0>(p, g, m, s) : launch<2, false, 0>(p, g, m, s));
+    }
+  switch (regs) {
+    case 4: return (int)launch<1, true, 4>(p, g, m, s);
+    case 8: return (int)launch<1, true, 8>(p, g, m, s);
+    case 16: return (int)launch<1, true, 16>(p, g, m, s);
+    default: return (int)(vec ? launch<1, true, 0>(p, g, m, s) : launch<1, false, 0>(p, g, m, s));
+  }
 }
 
 extern "C" const char* owrx_error_string(int err) {

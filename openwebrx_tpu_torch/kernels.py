@@ -101,6 +101,13 @@ class CudaKernel:
                     self._fn = fn
         return self._fn
 
+    def function(self, symbol: str, argtypes: list, restype):
+        """Another C function of the library, built and loaded first."""
+        self._load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes, fn.restype = argtypes, restype
+        return fn
+
     def launch(self, device, *args) -> None:
         """Call the C entry point with ``args`` and the current stream of
         ``device``, under ``device`` as the current device; raise on a
@@ -137,9 +144,9 @@ AGC = CudaKernel("agc.cu", "agc_launch",
 # squelch_launch(x, level, open0, hang0, y, power_db, open, hang, rows, n,
 #                window, cplx, level_per_row, hang_windows, then the plan of
 #                ops/squelch.py squelch_plan: cluster, warps, slice, chunk,
-#                stages, grid, smem, vec; stream)
+#                stages, vec; stream)
 SQUELCH = CudaKernel("squelch.cu", "squelch_launch",
-                     [_P, _P, _P, _P, _P, _P, _P, _P, *[_I] * 14, _P])
+                     [_P, _P, _P, _P, _P, _P, _P, _P, *[_I] * 12, _P])
 # adpcm_seq_launch(samples, pred0, idx0, out, stride, pred, idx, rows, ns,
 #                  forced, diag, stream)
 ADPCM_SEQ = CudaKernel("adpcm_seq.cu", "adpcm_seq_launch",

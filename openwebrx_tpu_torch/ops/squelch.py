@@ -14,6 +14,7 @@ within that tolerance of the level.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -31,26 +32,33 @@ MAX_WARPS = 8             # warps a CTA (csrc/squelch.cu kMaxWarps)
 ROW_FLOATS = 25000        # rows up to this many floats (100 KB: two CTAs an SM
                           # fit) go whole, a row a CTA; longer ones are sliced,
                           # no slice longer than this
-THREADS_AIM = 1 << 16     # rows mode: the threads of the grid, where rows are many
+THREADS_AIM = 1 << 17     # rows mode: the threads of the grid, where rows are many
 MIN_VEC = 2               # a thread takes at least this many 16-byte vectors ...
 MAX_VEC = 10              # ... and at most this many, where the warps allow
 MAX_STAGES = 4            # stage buffers (csrc/squelch.cu kMaxStages)
-SMEM_FLOATS = (227 * 1024 - 256) // 4   # dynamic shared memory a CTA, floats
-MAX_OFFSET = 1 << 22      # floats: a piece or chunk plus a window stays under this
+MAX_REGS = 16             # 16-byte vectors a thread holds in registers mode
+SMEM_FLOATS = (227 * 1024 - 32) // 4    # dynamic shared memory a CTA, floats (the
+                                        # kernel's four mbarriers take 32 bytes)
+MAX_OFFSET = 1 << 22      # floats: a slice plus a window stays under this
 
 
 class SquelchPlan(NamedTuple):
     """How ``csrc/squelch.cu`` cuts one call.
 
-    Rows mode (``slice == 0``): a CTA a row, ``grid = rows``.  Slice
-    mode: each row is cut into ``cluster`` slices of ``slice`` floats (the
-    last one shorter), one CTA each, a thread-block cluster a row (``grid
-    = rows * cluster``).  A CTA
-    of ``warps`` warps stages its piece in chunks of ``chunk`` floats
-    through ``stages`` buffers, all of it at once unless it is longer
-    (``reread``: y is then written from a second read of x).  ``smem`` is
-    the dynamic shared memory in bytes; ``vec``: bulk copies and 16-byte
-    stores, else 4-byte copies (a row or slice start not 16-byte aligned).
+    Rows mode (``slice == 0``): a CTA a row, ``grid = rows``; ``stages``
+    0 holds the row in registers (``chunk`` is the row), else the row is
+    staged in chunks of ``chunk`` floats of whole windows through
+    ``stages`` buffers: one chunk where the row fits, else the row is
+    walked chunk by chunk (``walks``), each gated and stored from its
+    stage.  Slice mode: each row is cut into ``cluster`` slices of
+    ``slice`` floats (the last one shorter), one CTA each, a thread-block
+    cluster a row (``grid = rows * cluster``), a slice staged whole unless
+    it is longer than the stages hold (``reread``: its window sums are
+    then streamed and y written from a second read of x).  A CTA has
+    ``warps`` warps.  ``grid`` and ``smem`` (the dynamic shared memory in
+    bytes) follow from the rest, and the kernel derives them itself;
+    ``vec``: bulk copies and 16-byte stores, else 4-byte copies (a row,
+    slice or chunk start not 16-byte aligned).
     """
     cluster: int
     warps: int
@@ -61,12 +69,11 @@ class SquelchPlan(NamedTuple):
     smem: int
     vec: bool
 
-    def piece(self, n: int, cplx: int) -> int:
-        """Floats a CTA owns."""
-        return self.slice or n * cplx
+    def walks(self, n: int, cplx: int) -> bool:
+        return not self.slice and self.chunk < n * cplx
 
     def reread(self, n: int, cplx: int) -> bool:
-        return self.piece(n, cplx) > self.stages * self.chunk
+        return bool(self.slice) and self.slice > self.stages * self.chunk
 
 
 def _pow2_ceil(v: int) -> int:
@@ -77,14 +84,35 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _group(tasks: int, n: int) -> int:
+    """Threads a window when ``tasks`` windows share ``n`` threads, as
+    ``csrc/squelch.cu`` group_of."""
+    sub = 1
+    while sub < n and tasks * sub * 2 <= n:
+        sub <<= 1
+    return sub
+
+
+def fits_registers(n: int, window: int, cplx: int, warps: int) -> bool:
+    """Whether a row fits registers mode (``csrc/squelch.cu`` regs_needed):
+    windows of whole 16-byte vectors, no more windows than threads, and at
+    most MAX_REGS vectors a thread."""
+    wf, nwin, t = window * cplx, n // window, 32 * warps
+    return wf % 4 == 0 and nwin <= t and _ceil(wf // 4, _group(nwin, t)) <= MAX_REGS
+
+
 def squelch_smem(n: int, window: int, cplx: int, warps: int, slice_: int, chunk: int,
                  stages: int) -> int:
     """Dynamic shared memory (bytes) of a plan, as ``csrc/squelch.cu``
-    ``smem_needed``: the stages, a chunk's window sums (a slot a warp), the
-    piece's window sums and each warp's window powers."""
-    wf, nwin = window * cplx, n // window
-    piece = slice_ or n * cplx
-    return 4 * (stages * chunk + (chunk // wf + 2) * warps + piece // wf + 2 + warps * nwin)
+    ``layout_of`` carves it (``squelch_smem_bytes`` there; a card check
+    holds the two equal): the stages, a chunk's window sums (a slot a
+    warp), in slice mode the slice's window sums, and each warp's powers
+    of the windows it decides (the row's in slice mode, a chunk's in rows
+    mode)."""
+    wf = window * cplx
+    sums = slice_ // wf + 2 if slice_ else 0
+    per_warp = n // window if slice_ else chunk // wf
+    return 4 * (stages * chunk + (chunk // wf + 2) * warps + sums + warps * per_warp)
 
 
 def squelch_layout(rows: int, n: int, window: int, cplx: int, cluster: int = 1,
@@ -99,21 +127,42 @@ def squelch_layout(rows: int, n: int, window: int, cplx: int, cluster: int = 1,
         slice_ = _ceil(_ceil(rowf, cluster), q) * q
         if (cluster - 1) * slice_ >= rowf:
             raise ValueError(f"{cluster} slices of {slice_} floats overrun a row of {rowf}")
-        piece, grid = slice_, rows * cluster
+        grid = rows * cluster
+        if not warps:
+            warps = _warps(slice_, grid)
+        room = SMEM_FLOATS - (slice_ // wf + 2) * (warps + 1) - warps * nwin
+        if slice_ <= room:             # one bulk copy of the whole slice
+            chunk, stages = slice_, 1
+        else:                          # streamed: y from a second read of x
+            stages = MAX_STAGES
+            chunk = room // stages // q * q
     else:
         if cluster != 1:
             raise ValueError("rows mode takes no cluster")
-        slice_, piece, grid = 0, rowf, rows
-    if not warps:
-        warps = _warps(piece, grid)
-    room = SMEM_FLOATS - (piece // wf + 2) * (warps + 1) - warps * nwin
-    if piece <= room:                  # one bulk copy of the whole piece
-        chunk, stages = piece, 1
-    else:                              # streamed: y from a second read of x
-        stages = MAX_STAGES
-        chunk = room // stages // q * q
+        slice_, grid = 0, rows
+        if not warps:
+            warps = _warps(rowf, grid)
+        if vec and fits_registers(n, window, cplx, warps):
+            smem = squelch_smem(n, window, cplx, warps, 0, rowf, 0)
+            return SquelchPlan(1, warps, 0, rowf, 0, grid, smem, True)
+        # the windows a chunk fits (a window: one float of the stages a
+        # stage, two slots a warp): the row whole in one stage, else walked
+        # through two stages (one where a window takes more than half the
+        # room) in chunks of a multiple of 16 bytes where they can be
+        def fit(stages):
+            return (SMEM_FLOATS - 2 * warps) // (stages * wf + 2 * warps)
+        if fit(1) >= nwin:
+            stages, tw = 1, nwin
+        else:
+            stages = 2 if fit(2) >= 1 else 1
+            tw = fit(stages)
+            step = 4 // math.gcd(wf, 4)
+            if tw >= step:
+                tw -= tw % step
+        chunk = tw * wf
+        vec = vec and chunk % 4 == 0
     smem = squelch_smem(n, window, cplx, warps, slice_, chunk, stages)
-    if (chunk < q or smem > 4 * SMEM_FLOATS or max(piece, chunk) + wf >= MAX_OFFSET
+    if (chunk < q or smem > 4 * SMEM_FLOATS or (slice_ and slice_ + wf >= MAX_OFFSET)
             or not 1 <= warps <= MAX_WARPS or cluster not in ((2, 4, 8) if sliced else (1,))):
         raise ValueError(f"no squelch plan for rows {rows}, n {n}, window {window} "
                          f"({nwin} windows a row) in {cluster} slices")
@@ -136,19 +185,24 @@ def squelch_plan(rows: int, n: int, window: int, cplx: int, aligned: bool = True
     samples (``cplx`` floats each) in windows of ``window``; ``aligned``:
     x lies at a 16-byte aligned address; ``sms``: the card's SMs.
 
-    Rows of up to ROW_FLOATS floats go whole, a row a CTA (rows mode);
-    longer ones are cut into the fewest slices (a power of two up to
-    MAX_CLUSTER) that keep a slice within ROW_FLOATS and give at least
-    ``sms`` CTAs, a cluster a row.  A CTA takes the warps of ``_warps``, or
-    one warp (then more slices) where a row's windows are too many for the
-    shared memory.  Raises ValueError for a shape no plan fits."""
-    if rows < 1 or window < 1 or n < window or n % window or cplx not in (1, 2):
+    Rows of up to ROW_FLOATS floats go whole, a row a CTA (rows mode), in
+    registers where they fit; longer ones are cut into the fewest slices
+    (a power of two up to MAX_CLUSTER) that keep a slice within ROW_FLOATS
+    and give at least ``sms`` CTAs, a cluster a row.  A CTA takes the warps
+    of ``_warps``, or one warp (then more slices) where a row's windows are
+    too many for the shared memory; a row that no slices fit is walked in
+    chunks of whole windows, a CTA a row.  Raises ValueError for a shape no
+    plan fits: a row of 2^31 floats or more, or a window longer than the
+    shared memory where the row is too long for slices."""
+    if (rows < 1 or window < 1 or n < window or n % window or cplx not in (1, 2)
+            or n * cplx >= 1 << 31):
         raise ValueError(f"no squelch plan for rows {rows}, n {n}, window {window}, "
                          f"cplx {cplx}")
     rowf = n * cplx
     parts = max(_pow2_ceil(_ceil(rowf, ROW_FLOATS)), _pow2_ceil(_ceil(sms, rows)))
     cuts = [(False, 1)] if rowf <= ROW_FLOATS else []
     cuts += [(True, c) for c in (2, 4, 8) if c >= min(MAX_CLUSTER, parts)]
+    cuts += [(False, 1)] if rowf > ROW_FLOATS else []
     for sliced, cluster in cuts:   # many short windows: fewer warps, then slices
         for warps in (0, 1):
             try:
@@ -238,5 +292,5 @@ def squelch_apply(state, level_db: torch.Tensor, x: torch.Tensor,
                        power_db.data_ptr(), open_.data_ptr(), hang.data_ptr(),
                        rows, b, window, cplx, int(per_row), hang_windows,
                        plan.cluster, plan.warps, plan.slice, plan.chunk, plan.stages,
-                       plan.grid, plan.smem, int(plan.vec))
+                       int(plan.vec))
     return (open_, hang), y, power_db

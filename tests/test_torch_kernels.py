@@ -486,12 +486,25 @@ def _squelch_scene(rows, n, window, seed, dtype=np.complex64):
     level = (10 * np.log10(scale[:, 0] ** 2 * (2 if dtype == np.complex64 else 1))
              + rng.uniform(-6, 6, rows)).astype(np.float32)
     x[0] = 0                               # silence: −300 dB, never open
-    x[1, : n // 2] = np.nan                # NaN windows never open
-    if n // window >= 4:
+    if rows > 1:
+        x[1, : n // 2] = np.nan            # NaN windows never open
+    if n // window >= 4 and rows > 2:
         x[2] = 0
         x[2, window:2 * window] = 1.0      # one loud window: hang 2, then out
         level[2] = -20.0
     return x, level
+
+
+def _squelch_bursts(rows, n, window, seed):
+    """Complex rows whose every window lies 10 dB above or below the row's
+    level at random (three in ten above), so that the hang opens and runs
+    out all along a row, however short its windows."""
+    rng = np.random.default_rng(seed)
+    level = rng.uniform(-60, 0, rows).astype(np.float32)
+    above = rng.uniform(size=(rows, n // window)) < 0.3
+    amp = 10.0 ** ((level[:, None] + np.where(above, 10.0, -10.0)) / 20)
+    x = np.repeat(amp, window, axis=1) * np.exp(2j * np.pi * rng.uniform(size=(rows, n)))
+    return x.astype(np.complex64), level
 
 
 def _state(rng, rows, dev="cpu"):
@@ -607,6 +620,27 @@ class TestSquelch:
 
 
     @pytest.mark.cuda
+    @pytest.mark.parametrize("rows,n,window", [
+        (16, 4800, 1),          # one-sample windows, more than shared memory holds
+        (1, 100000, 1),         # 100000 windows a row: no slices fit
+        (1, 17_000_000, 17000), # a row too long for slices, a window a chunk
+    ])
+    def test_kernel_walks_rows_on_card(self, cuda_device, rows, n, window):
+        """Rows walked in chunks of whole windows, the hang carried from
+        chunk to chunk, against the plain version: every window clear of
+        its level, so gates, hang and output are bit-identical."""
+        x, level = _squelch_bursts(rows, n, window, seed=n)
+        st = _state(np.random.default_rng(rows), rows, cuda_device)
+        xt = torch.from_numpy(x).to(cuda_device)
+        lt = torch.from_numpy(level).to(cuda_device)
+        assert tsq.squelch_plan(rows, n, window, 2).walks(n, 2)
+        sk, yk, pk = tsq.squelch_apply(st, lt, xt, window)
+        sp, yp, pp = tsq.squelch_apply_plain(st, lt, xt, window)
+        assert float((pk - pp).abs().max()) <= SQUELCH_DB_ATOL
+        assert torch.equal(_bits(yk), _bits(yp))
+        assert torch.equal(sk[0], sp[0]) and torch.equal(sk[1], sp[1])
+
+    @pytest.mark.cuda
     def test_kernel_repeats_and_carries_the_hang_on_card(self, cuda_device):
         """Two launches on one input give the same bits; the hang carried
         over three calls, state fed back, follows the plain chain; x at an
@@ -657,7 +691,11 @@ PLAN_CASES = {"usb": (1024, 600, 600, 2), "nfm": (1024, 2400, 2400, 2),
               "pod2": (512, 600, 600, 2), "real": (5, 4801, 4801, 1),
               "tiled": (3, 40000, 400, 2), "re-read": (2, 300000, 30000, 2),
               "straddle": (12, 15000, 5000, 2), "window 1": (16, 4800, 1, 2),
-              "unaligned": (64, 2400, 800, 2, False), "ragged": (1023, 600, 600, 2)}
+              "unaligned": (64, 2400, 800, 2, False), "ragged": (1023, 600, 600, 2),
+              "million windows": (1, 1_000_000, 1, 2),
+              "long row, long windows": (1, 17_000_000, 17000, 2),
+              "longest window": (1, 29_050_000, 29050, 2),
+              "real walked": (2, 300003, 3, 1), "past 2^31 floats": (65540, 16384, 16384, 2)}
 
 
 class TestSquelchPlan:
@@ -668,21 +706,28 @@ class TestSquelchPlan:
         rows, n, window, cplx, *aligned = PLAN_CASES[label]
         p = tsq.squelch_plan(rows, n, window, cplx, *aligned)
         rowf = n * cplx
-        owner = np.zeros(rowf, dtype=np.int64)
+        owner = np.zeros(rowf, dtype=np.int8)
         if p.slice:
             assert p.grid == rows * p.cluster
             for rank in range(p.cluster):
                 owner[rank * p.slice:min((rank + 1) * p.slice, rowf)] += 1
             assert (p.cluster - 1) * p.slice < rowf     # no CTA without a piece
+            # a resident slice is staged whole; a streamed one in chunks
+            assert p.reread(n, cplx) == (p.slice > p.stages * p.chunk)
+            if not p.reread(n, cplx):
+                assert p.stages == 1 and p.chunk >= p.slice
         else:
             assert p.cluster == 1 and p.grid == rows
             owner[:] += 1
+            # the row in registers, or chunks of whole windows: the row in
+            # one stage, else walked
+            assert p.chunk % (window * cplx) == 0 and p.chunk <= rowf
+            assert p.walks(n, cplx) == (p.chunk < rowf)
+            if not p.walks(n, cplx):
+                assert p.stages in (0, 1)
+            if p.stages == 0:
+                assert p.vec and tsq.fits_registers(n, window, cplx, p.warps)
         assert (owner == 1).all()
-        piece = p.piece(n, cplx)
-        # a resident piece is staged whole; a streamed one in chunks
-        assert p.reread(n, cplx) == (piece > p.stages * p.chunk)
-        if not p.reread(n, cplx):
-            assert p.stages == 1 and p.chunk >= piece
         assert p.smem == tsq.squelch_smem(n, window, cplx, p.warps, p.slice, p.chunk,
                                           p.stages)
 
@@ -694,8 +739,8 @@ class TestSquelchPlan:
         rows, n, window, cplx, *aligned = PLAN_CASES[label]
         p = tsq.squelch_plan(rows, n, window, cplx, *aligned)
         assert p.cluster in (1, 2, 4, 8) and 1 <= p.warps <= 8
-        assert p.smem <= 227 * 1024 - 256 and 1 <= p.stages <= 4
-        if n * cplx <= tsq.ROW_FLOATS and label != "window 1":
+        assert p.smem <= 227 * 1024 - 32 and (1 if p.slice else 0) <= p.stages <= 4
+        if n * cplx <= tsq.ROW_FLOATS:
             assert p.slice == 0                       # a row a CTA
         if p.slice:
             assert p.slice <= max(tsq.ROW_FLOATS, -(-n * cplx // 8)) + 3
@@ -728,10 +773,36 @@ class TestSquelchPlan:
         assert not tsq.squelch_plan(5, 4801, 4801, 1).vec
         assert not tsq.squelch_plan(64, 2400, 800, 2, aligned=False).vec
         assert tsq.squelch_plan(1023, 600, 600, 2).grid == 1023
+        # registers at every rows-mode path shape but the server's NFM bank,
+        # whose 76.8 KB rows are staged, as x at an unaligned address is
+        for label in ("usb", "nfm", "am", "cfg1", "cfg2", "cfg2 edge", "cfg4", "cfg3",
+                      "cfg6", "cfg6 edge", "pod2", "ragged"):
+            assert tsq.squelch_plan(*PLAN_CASES[label]).stages == 0, label
+        for label in ("server nfm", "unaligned", "real"):
+            assert tsq.squelch_plan(*PLAN_CASES[label]).stages == 1, label
+        # rows of more windows than shared memory holds are walked
+        for shape in ((16, 4800, 1, 2), (1, 100000, 1, 2), (1, 1_000_000, 1, 2)):
+            assert tsq.squelch_plan(*shape).walks(shape[1], shape[3])
+
+    def test_plan_takes_every_window_the_tiled_kernel_took(self):
+        """The squelch kernel before the cluster redesign walked any row in
+        tiles of whole windows and took every window of up to 58100 floats
+        (its one-window tile in 227 KB of shared memory): every such window
+        still has a plan, on a row of one window and on one too long for
+        slices, complex and real, and the windows past it have none."""
+        for window, cplx in ((29050, 2), (58100, 1), (4, 2), (1, 1)):
+            long_row = window * (8 * 2 ** 22 // (window * cplx) + 1)
+            for n in (window, long_row):
+                p = tsq.squelch_plan(1, n, window, cplx)
+                assert p.smem <= 227 * 1024 - 32
+            assert p.walks(long_row, cplx)
+        for window, cplx in ((29051, 2), (58101, 1)):
+            with pytest.raises(ValueError):
+                tsq.squelch_plan(1, window * 1000, window, cplx)
 
     def test_plan_rejects_what_the_kernel_cannot_take(self):
         for args in ((0, 600, 600, 2), (4, 600, 7, 2), (4, 600, 600, 3),
-                     (1, 1_000_000, 1, 2)):    # a million windows a row
+                     (1, 2 ** 30, 2 ** 30, 2)):    # a row of 2^31 floats
             with pytest.raises(ValueError):
                 tsq.squelch_plan(*args)
 
