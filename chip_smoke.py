@@ -114,6 +114,18 @@ Phases (any failure raises and the script exits non-zero):
    here, tones, each rank's launches and kernel shapes, its ms/block and
    its collectives' time.  ``python3 chip_smoke.py --pod-ranks 2 4`` runs
    8b alone at those world sizes (on a machine with as many cards: NCCL).
+9. golden parity and the card-only tests (run after phase 6): (a) every
+   scene of tests/test_torch_golden.py (``SCENES``: the seeded 2.4 MS/s
+   capture through the selector, NFM, AM, USB, WFM, the full NFM chain with
+   squelch, NR and AGC, the remez oracle and four front-end impairments) on
+   the CPU port and on the card, each held to that file's bounds against
+   the independent numpy/scipy oracle, every card run launching exactly the
+   scene's kernels (the IIR; the squelch, IIR and AGC on the full chain),
+   and each kernel at the shapes the scenes handed it against its plain
+   version; (b) ``pytest --noconftest -m cuda tests/test_torch_card.py
+   tests/test_torch_golden.py`` in a fresh interpreter where jax cannot be
+   imported, its pass, skip and fail counts on a line of their own (with
+   one card, TestSecondCard skips); a failure, an error or no pass fails.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -257,6 +269,24 @@ SRV_DEADLINE_S = 120.0       # any wait of phase 7 (start-up, first audio)
 # 12 kHz IMA ADPCM: 4 bits a sample plus an 8-byte SYNC header every 100
 # bytes (ops/adpcm.py SyncFramer)
 SRV_AUDIO_BYTES_PER_S = 12000 / 2 * 1.08
+# Phase 9: the golden scenes (tests/test_torch_golden.py) on the card against
+# the oracle, then the card-only tests through pytest with jax unimportable
+# (tests/conftest.py imports jax, hence --noconftest).  An import finder
+# refuses jax, as where it is not installed: a None in sys.modules["jax"]
+# would break scipy's array-API check, which reads sys.modules["jax"].Array
+CARD_TESTS_ARGS = ("--noconftest", "-p", "no:cacheprovider", "-q", "-rs", "-m", "cuda",
+                   "tests/test_torch_card.py", "tests/test_torch_golden.py")
+CARD_TESTS_PRELUDE = """
+import sys
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(f"{name} is blocked")
+sys.meta_path.insert(0, NoJax())
+import pytest
+sys.exit(pytest.main(sys.argv[1:]))
+"""
+CARD_TESTS_TIMEOUT_S = 600
 
 ROOT = Path(__file__).resolve().parent
 
@@ -2004,8 +2034,9 @@ def main() -> int:
                   "de-emphasis": iir.deemphasis_coeffs(48000.0, 150e-6)}
     iir_in = {}                    # label: (state, x, coefficients) timed in phase 6
     iir_err = 0.0
-    for label, shape in IIR_PATH_CASES.items():
-        st, x = iir_input(torch, gen_for(label), dev, shape)
+
+    def iir_case(label, st, x):
+        nonlocal iir_err
         for co_name, co in iir_coeffs.items():
             (ix_k, iy_k), y_k = iir.first_order_apply(st, *co, x, device=dev)
             (ix_p, iy_p), y_p = iir.first_order_apply_plain(st, *co, x)
@@ -2018,6 +2049,10 @@ def main() -> int:
                 f"{torch.equal(ix_k, ix_p)}")
             check(err <= tol and torch.equal(ix_k, ix_p),
                   f"IIR kernel disagrees ({label}, {co_name}): {err} > {tol}")
+
+    for label, shape in IIR_PATH_CASES.items():
+        st, x = iir_input(torch, gen_for(label), dev, shape)
+        iir_case(label, st, x)
         iir_in[label] = (st, x, iir_coeffs["dc block" if label.endswith("am")
                                            else "de-emphasis"])
 
@@ -2036,7 +2071,9 @@ def main() -> int:
     step[6:] = torch.randn(2, 2400, generator=gen, device=dev) * 0.01
     agc_in["zeros and steps"] = (agc.FAST, agc.agc_init(agc.FAST, (8,), device=dev),
                                  step, 50)
-    for label, (prof, st, x, chunk) in agc_in.items():
+
+    def agc_case(label, prof, st, x, chunk):
+        nonlocal agc_err
         (g_k, h_k), a_k = agc.agc_apply(st, prof, x, chunk, device=dev)
         (g_p, h_p), a_p = agc.agc_apply_plain(st, prof, x, chunk)
         torch.cuda.synchronize()
@@ -2048,6 +2085,9 @@ def main() -> int:
             f"(max_abs_err {err:.3e})")
         check(state_same, f"AGC kernel gain or hang differs ({label})")
         check(torch.equal(a_k, a_p), f"AGC kernel audio differs ({label})")
+
+    for label, case in agc_in.items():
+        agc_case(label, *case)
     (g_s, h_s), _ = agc.agc_apply(agc_in["zeros and steps"][1], agc.FAST, step, 50,
                                   device=dev)
     check(bool((g_s[:2] == agc.FAST.max_gain).all()) and bool((h_s[2:4] > 0).all())
@@ -3103,6 +3143,25 @@ def main() -> int:
     log(f"[time] {smi}: adpcm_encode plain (1024, 600) {adpcm_plain_ms:.5f} ms")
     agc_main, adpcm_main = agc_rows["nfm"], adpcm_rows["nfm"]
 
+    # -- 9. golden parity on the card, then the card-only tests ----------------
+    golden_seen, golden_table = golden_scenes(torch, smi, kernels, launches_by_path)
+    # each kernel at the shapes the golden scenes handed it, against its plain
+    # version on inputs of its own (outside the counted runs)
+    gen_gold = torch.Generator(device=dev)
+    gen_gold.manual_seed(9)
+    log("[golden] kernel shapes: " + "; ".join(f"{k} {sorted(v)}"
+                                               for k, v in golden_seen.items() if v))
+    for shape, window in sorted(golden_seen["squelch"]):
+        squelch_case("golden", *squelch_input(torch, gen_gold, dev, shape, window), window)
+    for pname, shape, chunk in sorted(golden_seen["agc"]):
+        agc_case("golden", getattr(agc, pname), *agc_input(torch, gen_gold, dev, shape),
+                 chunk)
+    for shape in sorted(golden_seen["iir"]):
+        iir_case("golden", *iir_input(torch, gen_gold, dev, shape))
+    card_counts = card_tests()
+    print(json.dumps({"card": smi, "golden": golden_table, "card_tests": card_counts}),
+          flush=True)
+
     def total(name):
         return sum(v[name] for v in launches_by_path.values())
 
@@ -3168,6 +3227,79 @@ def main() -> int:
         "platform": "gpu", "kind": device_kind, "count": torch.cuda.device_count()}}),
         flush=True)
     return 0
+
+
+def golden_scenes(torch, smi, kernels, launches_by_path):
+    """Phase 9a: every scene of tests/test_torch_golden.py (``SCENES``) on
+    the CPU port and on the card, each held to its bounds against the
+    oracle (host numpy, computed once a scene); every card run with the
+    kernel counts set to 0 just before it and read just after must launch
+    exactly the scene's kernels → (the shapes the card runs handed the
+    kernels, the table of measures)."""
+    t_phase = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_golden as golden
+    refs = golden.golden_oracle()
+    seen, table = shape_record(), {}
+    for name, scene in golden.SCENES.items():
+        cpu = {m.what: m for m in scene.run(refs, "cpu")}
+        torch.cuda.synchronize()
+        for k in kernels.ALL:
+            k.launches = 0
+        restore = record_shapes(seen)
+        try:
+            card = scene.run(refs, "cuda")
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        launches = {k.source.name: k.launches for k in kernels.ALL}
+        launches_by_path[f"golden {name}"] = launches
+        for m in card:
+            c = cpu.get(m.what)
+            log(f"[golden] {smi}: {name}: {m.what}: card {m.value:.4f}, cpu port "
+                f"{'n/a' if c is None else f'{c.value:.4f}'}, bound {m.op} {m.bound}")
+            table[f"{name}: {m.what}"] = {"card": m.value, "cpu": c and c.value,
+                                          "op": m.op, "bound": m.bound}
+        log(f"[golden] {name} launches: {launches}")
+        missed = [m.what for m in [*card, *cpu.values()] if not m.passed]
+        check(not missed, f"golden {name}: bounds missed: {missed}")
+        launched = {n for n, v in launches.items() if v}
+        check(launched == scene.kernels, f"golden {name}: launched {sorted(launched)}, "
+              f"expected {sorted(scene.kernels)}")
+    log(f"[golden] phase 9a took {time.perf_counter() - t_phase:.1f} s")
+    return seen, table
+
+
+def card_tests():
+    """Phase 9b: the card-only tests (tests/test_torch_card.py and the golden
+    scenes' cuda cases) through pytest in a fresh interpreter where jax
+    cannot be imported, as on a machine without it → the counts.  Every
+    line of pytest's output goes to build/card_tests.log."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CARD_TESTS_PRELUDE, *CARD_TESTS_ARGS],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=CARD_TESTS_TIMEOUT_S)
+    out = proc.stdout + proc.stderr
+    (ROOT / "build").mkdir(exist_ok=True)
+    (ROOT / "build" / "card_tests.log").write_text(out)
+    lines = out.strip().splitlines()
+    counts = dict.fromkeys(("passed", "skipped", "failed", "errors", "deselected"), 0)
+    for n, word in re.findall(r"(\d+) (passed|skipped|failed|errors?|deselected)",
+                              proc.stdout.strip().splitlines()[-1] if proc.stdout.strip()
+                              else ""):
+        counts["errors" if word.startswith("error") else word] = int(n)
+    for line in lines:
+        if line.startswith("SKIPPED"):
+            log(f"[card tests] {line}")
+    log(f"[card tests] passed {counts['passed']} skipped {counts['skipped']} failed "
+        f"{counts['failed']} errors {counts['errors']} deselected {counts['deselected']}"
+        f" (exit {proc.returncode}, {time.perf_counter() - t0:.1f} s)")
+    ok = (proc.returncode == 0 and counts["passed"] > 0 and not counts["failed"]
+          and not counts["errors"])
+    if not ok:
+        log("\n".join(lines[-80:]))
+    check(ok, f"card tests: exit {proc.returncode}, {counts}")
+    return counts
 
 
 def pod_ranks_alone(worlds) -> int:

@@ -3,8 +3,8 @@
 Same numpy inputs, made from a seed, go through the JAX function and the
 port's on the CPU, where the port's kernel wrappers run their plain
 versions: the first-order IIR, the demodulators, the rational resampler,
-the AGC, every new stage, the analog chains through ``Program`` (with a
-mode switch), and the reference's oracle parity scenes through the port.
+the AGC, every new stage, and the analog chains through ``Program`` (with a
+mode switch).  The oracle parity scenes are tests/test_torch_golden.py.
 Each test states its tolerance.
 """
 
@@ -20,17 +20,15 @@ from openwebrx_tpu.models.receiver import (
 from openwebrx_tpu.ops import agc as jagc, demod as jdemod, fir as jfir, iir as jiir
 from openwebrx_tpu.ops.formats import Format as JFormat, StreamSpec as JSpec
 from openwebrx_tpu.runtime.chain import _unpack_leaf
-from openwebrx_tpu.testing import capture as cap, oracle
 from openwebrx_tpu_torch.from_jax import bank_state_from_numpy
 from openwebrx_tpu_torch.models import stages as tst
-from openwebrx_tpu_torch.models.analog import NFM_TAU, WFm
+from openwebrx_tpu_torch.models.analog import NFM_TAU
 from openwebrx_tpu_torch.models.receiver import (
     ClientDemodulatorChain, build_program)
-from openwebrx_tpu_torch.models.selector import Selector
 from openwebrx_tpu_torch.ops import (agc as tagc, demod as tdemod, fir as tfir,
                                      firdes as tfirdes, iir as tiir)
 from openwebrx_tpu_torch.ops.formats import Format as TFormat, StreamSpec as TSpec
-from openwebrx_tpu_torch.runtime.chain import Chain, choose_block_size
+from openwebrx_tpu_torch.runtime.chain import choose_block_size
 
 CPU = "cpu"
 
@@ -402,71 +400,3 @@ class TestChainsThroughProgram:
         with pytest.raises(ValueError):
             tp.process(np.zeros(tp.block - 1, np.complex64))
 
-
-# --------------------------------------------- oracle parity (golden) --
-def _run_port(chain, x, in_rate=cap.FS, target_seconds=0.1):
-    prog = build_program(chain, in_rate, target_seconds=target_seconds, device=CPU)
-    n = (len(x) // prog.block) * prog.block
-    outs = [prog.process(x[i:i + prog.block])[0] for i in range(0, n, prog.block)]
-    return np.concatenate([np.asarray(o).reshape(-1) for o in outs])
-
-
-def _sel(offset, out_rate, low, high):
-    sel = Selector(cap.FS, out_rate, with_squelch=False)
-    sel.set_frequency_offset(offset)
-    sel.set_bandpass(low, high)
-    return sel
-
-
-def _settled(y, rate, skip_s=0.06):
-    return y[int(skip_s * rate):]
-
-
-@pytest.fixture(scope="module")
-def scene():
-    return cap.make_capture(duration_s=0.4)
-
-
-class TestOracleParity:
-    """The scenes and bounds of tests/test_parity_golden.py, run through the
-    port: selector IQ ≥ 45 dB, NFM and AM pre-AGC ≥ 35 dB, WFM ≥ 25 dB."""
-
-    def test_selector_iq(self, scene):
-        ours = _run_port(_sel(cap.NFM_OFFSET, 48000.0, -4000.0, 4000.0), scene)
-        ref = oracle.selector(np.asarray(scene, np.complex128), cap.FS, 48000.0,
-                              cap.NFM_OFFSET, -4000.0, 4000.0)
-        n = min(len(ours), len(ref))
-        snr = oracle.snr_db(_settled(ref[:n], 48000), _settled(ours[:n], 48000))
-        assert snr >= 45.0, snr
-
-    def test_nfm_pre_agc(self, scene):
-        chain = Chain([_sel(cap.NFM_OFFSET, 48000.0, -4000.0, 4000.0),
-                       tst.FmDemodStage(), tst.LimitStage(),
-                       tst.DeemphasisStage(NFM_TAU, name="deemph")], name="nfm_parity")
-        ours = _run_port(chain, scene)
-        ref = oracle.nfm_chain(np.asarray(scene, np.complex128), cap.FS, 48000.0,
-                               cap.NFM_OFFSET, tau=NFM_TAU)
-        n = min(len(ours), len(ref))
-        snr = oracle.snr_db(_settled(ref[:n], 48000), _settled(ours[:n], 48000))
-        assert snr >= 35.0, snr
-
-    def test_am_pre_agc(self, scene):
-        chain = Chain([_sel(cap.AM_OFFSET, 12000.0, -4000.0, 4000.0),
-                       tst.AmDemodStage(), tst.DcBlockStage()], name="am_parity")
-        ours = _run_port(chain, scene)
-        ref = oracle.am_chain(np.asarray(scene, np.complex128), cap.FS, 12000.0,
-                              cap.AM_OFFSET)
-        n = min(len(ours), len(ref))
-        snr = oracle.snr_db(_settled(ref[:n], 12000), _settled(ours[:n], 12000))
-        assert snr >= 35.0, snr
-
-    def test_wfm_audio(self, scene):
-        sel = Selector(cap.FS, 250000.0, with_squelch=False)
-        sel.set_frequency_offset(cap.NFM_OFFSET)
-        sel.set_bandpass(-75000.0, 75000.0)
-        chain = Chain([sel, WFm(audio_rate=48000, rds=False)], name="wfm_parity")
-        ours = _run_port(chain, scene)
-        ref = oracle.wfm_chain(np.asarray(scene, np.complex128), cap.FS, cap.NFM_OFFSET)
-        _, r, t = oracle.align(_settled(ref, 48000), _settled(ours, 48000),
-                               max_lag=512)
-        assert oracle.snr_db(r, t) >= 25.0

@@ -392,9 +392,11 @@ class TestControlsFromAnotherThread:
 
 class TestGuards:
     def test_no_jax_imports(self):
-        """No module of the port (its host modules too), nor chip_smoke.py,
-        profile_torch_bank.py or compare_bank_ms.py, imports jax or the JAX
-        package (an AST scan: this process has jax loaded already)."""
+        """No module of the port (its host modules and its golden-parity
+        harness too), nor chip_smoke.py, profile_torch_bank.py,
+        compare_bank_ms.py, compare_kernels.py or the card-only and golden
+        test files, imports jax or the JAX package (an AST scan: this
+        process has jax loaded already)."""
         files = sorted((REPO / "openwebrx_tpu_torch").rglob("*.py"))
         for rel in ("ops/iir.py", "ops/squelch.py", "ops/adpcm.py", "ops/fftops.py",
                     "ops/convert.py", "ops/timing.py", "ops/fsk.py",
@@ -406,10 +408,13 @@ class TestGuards:
                     "services/engine.py", "web/server.py", "web/settings.py",
                     "web/connection.py", "native.py", "sdr.py", "__main__.py",
                     "parallel/mesh.py", "parallel/halo.py", "parallel/pfb.py",
-                    "parallel/pod.py", "parallel/cluster.py"):
+                    "parallel/pod.py", "parallel/cluster.py",
+                    "testing/capture.py", "testing/oracle.py"):
             assert REPO / "openwebrx_tpu_torch" / rel in files, rel
         files += [REPO / "chip_smoke.py", REPO / "profile_torch_bank.py",
-                  REPO / "compare_bank_ms.py"]
+                  REPO / "compare_bank_ms.py", REPO / "compare_kernels.py",
+                  REPO / "tests" / "test_torch_golden.py",
+                  REPO / "tests" / "test_torch_card.py"]
         assert len(files) > 20
         bad = []
         for f in files:

@@ -795,27 +795,3 @@ class TestParityWithJax:
             snr[side] = tone_power_ratio(decode_wire(frames)[1200:], 1000.0)
         assert snr["port"] > -6.0
         assert abs(snr["port"] - snr["jax"]) <= SNR_DB_TOL, snr
-
-
-class TestOnCard:
-    @pytest.mark.cuda
-    def test_one_event_per_block_on_card(self):
-        """On a card every result of a block (waterfall, a listener bank, a
-        6-block service batch) is copied behind one shared event."""
-        if not torch.cuda.is_available():
-            pytest.skip("needs an NVIDIA card")
-        rt = DeviceRuntime(_source([]), capacity=8, target_seconds=0.05, host=HOST,
-                           fft_size=1024)
-        rt.subscribe_waterfall(lambda p: None)
-        rt.open_channel("usb", 48_500.0)
-        rt.open_channel("usb", 96_500.0, service=True)
-        block = (np.random.default_rng(0).standard_normal((rt.block, 2)) * 0.05
-                 ).astype(np.float32)
-        for i in range(6):
-            pend = rt._dispatch_block(block)
-            events = {p.event for p in pend["fft_pending"]}
-            for pl in pend["bank_pending"].values():
-                events |= {p.event for p in pl}
-            assert len(events) == 1 and None not in events
-            assert len(pend["bank_pending"].get("pfb:ssb", [])) == (6 if i == 5 else 0)
-            rt._complete_block(pend)

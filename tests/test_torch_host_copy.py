@@ -1,12 +1,13 @@
 """The port's host modules are the reference's, held to it file by file.
 
 ``openwebrx_tpu_torch`` keeps its own copy of every host module the entry
-point reaches (it may not import the JAX package, whose ``__init__``
-imports jax).  Each copy equals the reference's text with the package
-name changed (``openwebrx_tpu.`` → ``openwebrx_tpu_torch.``), except the
+point reaches, and of the golden-parity harness (``testing``: the seeded
+capture and the numpy/scipy oracle), since it may not import the JAX
+package, whose ``__init__`` imports jax.  Each copy equals the reference's
+text with the package name changed (``openwebrx_tpu.`` → ``openwebrx_tpu_torch.``), except the
 modules in ``DIVERGES``, each with the reason it differs; the shipped data
 files are equal byte for byte.  The entry point imports and runs with jax
-made unimportable.
+made unimportable, and so do the card-only tests.
 """
 
 import subprocess
@@ -19,7 +20,8 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 REF = REPO / "openwebrx_tpu"
 PORT = REPO / "openwebrx_tpu_torch"
-HOST_DIRS = ("core", "sources", "aprs", "digimodes", "reporting", "services", "web")
+HOST_DIRS = ("core", "sources", "aprs", "digimodes", "reporting", "services", "web",
+             "testing")
 HOST_FILES = sorted(
     [str(f.relative_to(REF)) for d in HOST_DIRS for f in (REF / d).rglob("*.py")]
     + ["native.py", "sdr.py", "__main__.py"])
@@ -117,3 +119,38 @@ def test_entry_point_runs_without_jax(tmp_path):
     assert "--device" in proc.stdout and "--signal-demo" in proc.stdout
     assert "LEAKED []" in proc.stdout
     assert (tmp_path / "users.json").is_file()
+
+
+def _pytest_without_jax(args, tmp_path):
+    """pytest ``args`` (without tests/conftest.py, which imports jax) in an
+    interpreter where ``import jax`` fails → (process, its summary line)."""
+    proc = _run_without_jax(f"""
+        import pytest
+        rc = pytest.main(["--noconftest", "-p", "no:cacheprovider", "-q",
+                          "-p", "no:xdist", *{list(args)!r}])
+        leaked = sorted(k for k in sys.modules if k == "openwebrx_tpu"
+                        or k.startswith("openwebrx_tpu."))
+        print("RC", int(rc))
+        print("LEAKED", leaked)
+    """, tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    summary = [line for line in proc.stdout.splitlines() if " in " in line
+               and ("passed" in line or "skipped" in line or "error" in line)]
+    return proc, summary[-1] if summary else ""
+
+
+def test_card_tests_collect_without_jax(tmp_path):
+    """The card's command (``pytest --noconftest -m cuda
+    tests/test_torch_card.py tests/test_torch_golden.py``) on a machine
+    without jax: both files collect, the golden design cases pass, the card
+    cases skip without a card, and nothing of the JAX package is loaded."""
+    import torch
+    proc, summary = _pytest_without_jax(["tests/test_torch_card.py"], tmp_path)
+    assert "RC 0" in proc.stdout and "LEAKED []" in proc.stdout, proc.stdout
+    assert "error" not in summary and "failed" not in summary, proc.stdout
+    if not torch.cuda.is_available():
+        assert "skipped" in summary and "passed" not in summary, summary
+    proc, summary = _pytest_without_jax(
+        ["tests/test_torch_golden.py", "-k", "design"], tmp_path)
+    assert "RC 0" in proc.stdout and "LEAKED []" in proc.stdout, proc.stdout
+    assert summary.startswith("3 passed"), proc.stdout

@@ -4,8 +4,8 @@ FftChain, and the exact IMA row encoder behind the compressed rows.
 The same numpy inputs go through the JAX package and the port on the CPU.
 Float rows agree within WATERFALL_DB_ATOL on the bins within 60 dB of the
 row's peak; the encoder's bytes, stride states and final state agree bit
-for bit.  The kernel is held against its plain version on a card (marker
-``cuda``).
+for bit.  The kernel is held against its plain version on a card in
+tests/test_torch_card.py.
 """
 
 import numpy as np
@@ -26,19 +26,14 @@ from openwebrx_tpu_torch.ops import fftops as tfft
 from openwebrx_tpu_torch.ops.formats import Format, StreamSpec
 from openwebrx_tpu_torch.runtime.chain import Program
 
+from test_torch_card import _square_rows, _waterfall_row_samples
+
 FS = 240000.0
 # dB rows: float32 FFTs of two libraries (pocketfft, XLA's) and sums of
 # frames in other orders; bins within 60 dB of the peak carry ≥ 1e-6 of
 # its power, where the relative error stays ~1e-5 (~1e-4 dB)
 WATERFALL_DB_ATOL = 1e-3
 NEAR_PEAK_DB = 60.0
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
-    return torch.device("cuda", 0)
 
 
 def _near_peak_close(got, ref):
@@ -55,36 +50,6 @@ def _iq(n, seed, tone=0.13):
     return (0.5 * np.exp(2j * np.pi * tone * k)
             + 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
             ).astype(np.complex64)
-
-
-def _square_rows(rows, n):
-    """Full-scale square waves of several periods: the largest steps."""
-    t = np.arange(n)
-    out = [np.where((t // p) % 2 == 0, 32767, -32768) for p in (1, 3, 17, 64)]
-    return np.stack([out[i % 4] for i in range(rows)]).astype(np.int16)
-
-
-def _waterfall_row_samples(kind, bins=1024, seed=0):
-    """The row encoder's int16 input for one waterfall-like row: dB of the
-    averaged |FFT|² of noise plus two tones (29 frames as config #2's
-    waterfall, 600 as the 49.152 MS/s one), a clipped row, or full-scale
-    square waves; COMPRESS_FFT_PAD_N pad samples in front."""
-    rng = np.random.default_rng(seed)
-    if kind == "square":
-        return _square_rows(1, bins + 16)[0]
-    frames = {"wf29": 29, "wf600": 600, "clipped": 29}[kind]
-    t = np.arange(bins)
-    acc = np.zeros(bins)
-    for _ in range(frames):
-        z = rng.standard_normal(bins) + 1j * rng.standard_normal(bins)
-        z += 30 * np.exp(2j * np.pi * 0.1 * t) + 3 * np.exp(2j * np.pi * 0.37 * t)
-        acc += np.abs(np.fft.fftshift(np.fft.fft(z * np.hanning(bins)))) ** 2
-    db = 10 * np.log10(acc / frames / bins) - 60
-    if kind == "clipped":
-        db[::7] = 400.0                     # +32767 after ×100
-        db[3::11] = -400.0                  # −32768
-    rows = torch.from_numpy(db.astype(np.float32))[None]
-    return tadpcm.fft_row_samples(rows)[0].numpy()
 
 
 class TestAdpcmEncodeSeq:
@@ -163,46 +128,6 @@ class TestAdpcmEncodeSeq:
         with pytest.raises(ValueError):
             tadpcm.encode_seq_kernel(st, x, forced=3)
 
-    @pytest.mark.cuda
-    @pytest.mark.parametrize("rows,n", [(1, 4112), (16, 4112), (3, 2058), (40, 400)])
-    def test_kernel_matches_plain_on_card(self, cuda_device, rows, n):
-        rng = np.random.default_rng(rows + n)
-        x = rng.integers(-32768, 32767, (rows, n)).astype(np.int16)
-        x[::3] = _square_rows(len(x[::3]), n)
-        st = tuple(torch.from_numpy(v).to(cuda_device) for v in (
-            rng.integers(-32768, 32767, rows).astype(np.int32),
-            rng.integers(0, 89, rows).astype(np.int32)))
-        xt = torch.from_numpy(x).to(cuda_device)
-        ks, (kb, kst) = tadpcm.adpcm_encode_seq(st, xt)
-        ps, (pb, pst) = tadpcm.adpcm_encode_seq_plain(st, xt)
-        torch.cuda.synchronize()
-        assert torch.equal(kb, pb) and torch.equal(kst, pst)
-        assert all(torch.equal(a, b) for a, b in zip(ks, ps))
-
-    @pytest.mark.cuda
-    @pytest.mark.parametrize("forced", [1, 2])
-    @pytest.mark.parametrize("rows,n", [(1, 4112), (16, 4112), (3, 2058), (2, 6)])
-    def test_kernel_forced_repairs_match_plain_on_card(self, cuda_device, rows, n, forced):
-        """The adversarial test inputs: every guess at (−32768, 88)
-        (forced 1), or no guessed run taken at all, so the sweep encodes the
-        row itself (forced 2); the output must not change."""
-        rng = np.random.default_rng(rows * n + forced)
-        x = np.stack([_waterfall_row_samples(("wf29", "wf600", "square")[i % 3],
-                                             bins=4096, seed=i)[:n]
-                      for i in range(rows)]) if n > 8 else \
-            rng.integers(-32768, 32767, (rows, n)).astype(np.int16)
-        st = tuple(torch.from_numpy(v).to(cuda_device) for v in (
-            rng.integers(-32768, 32767, rows).astype(np.int32),
-            rng.integers(0, 89, rows).astype(np.int32)))
-        xt = torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
-        diag = torch.zeros(rows, tadpcm.SEQ_DIAG_WORDS, dtype=torch.int32,
-                           device=cuda_device)
-        ks, (kb, kst) = tadpcm.encode_seq_kernel(st, xt, forced=forced, diag=diag)
-        ps, (pb, pst) = tadpcm.adpcm_encode_seq_plain(st, xt)
-        torch.cuda.synchronize()
-        assert torch.equal(kb, pb) and torch.equal(kst, pst)
-        assert all(torch.equal(a, b) for a, b in zip(ks, ps))
-        assert int(diag[:, 2].max()) > 0             # the first pass ran
 
 
 class TestFftOps:
