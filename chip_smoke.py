@@ -271,11 +271,17 @@ SRV_DEADLINE_S = 120.0       # any wait of phase 7 (start-up, first audio)
 SRV_AUDIO_BYTES_PER_S = 12000 / 2 * 1.08
 # Phase 9: the golden scenes (tests/test_torch_golden.py) on the card against
 # the oracle, then the card-only tests through pytest with jax unimportable
-# (tests/conftest.py imports jax, hence --noconftest).  An import finder
+# (tests/conftest.py imports jax, hence --noconftest): the kernels against
+# their plain versions, the golden scenes' cuda cases and the reference's own
+# device-path cases carried onto the port (tests/test_torch_ref_*.py), each
+# carrying file reporting its card cases and kernel launches on a line of
+# its own (tests/torch_ref_device.py card_report).  An import finder
 # refuses jax, as where it is not installed: a None in sys.modules["jax"]
 # would break scipy's array-API check, which reads sys.modules["jax"].Array
 CARD_TESTS_ARGS = ("--noconftest", "-p", "no:cacheprovider", "-q", "-rs", "-m", "cuda",
-                   "tests/test_torch_card.py", "tests/test_torch_golden.py")
+                   "tests/test_torch_card.py", "tests/test_torch_golden.py",
+                   "tests/test_torch_ref_ops.py", "tests/test_torch_ref_secondary.py",
+                   "tests/test_torch_ref_voice.py", "tests/test_torch_ref_runtime.py")
 CARD_TESTS_PRELUDE = """
 import sys
 class NoJax:
@@ -3158,7 +3164,7 @@ def main() -> int:
                  chunk)
     for shape in sorted(golden_seen["iir"]):
         iir_case("golden", *iir_input(torch, gen_gold, dev, shape))
-    card_counts = card_tests()
+    card_counts = card_tests(smi)
     print(json.dumps({"card": smi, "golden": golden_table, "card_tests": card_counts}),
           flush=True)
 
@@ -3270,15 +3276,22 @@ def golden_scenes(torch, smi, kernels, launches_by_path):
     return seen, table
 
 
-def card_tests():
-    """Phase 9b: the card-only tests (tests/test_torch_card.py and the golden
-    scenes' cuda cases) through pytest in a fresh interpreter where jax
-    cannot be imported, as on a machine without it → the counts.  Every
-    line of pytest's output goes to build/card_tests.log."""
+def card_tests(smi):
+    """Phase 9b: the card-only tests (tests/test_torch_card.py, the golden
+    scenes' cuda cases and the reference's carried cases) through pytest in
+    a fresh interpreter where jax cannot be imported, as on a machine
+    without it → the counts, with each carrying file's report under
+    ``"reference"``.  Every carrying file must report, every one of its
+    card cases must pass, and the carried cases together must launch every
+    kernel.  Every line of pytest's output goes to build/card_tests.log."""
+    from openwebrx_tpu_torch import kernels
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_ref_device import REPORT_PREFIX
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", CARD_TESTS_PRELUDE, *CARD_TESTS_ARGS],
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=CARD_TESTS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
     out = proc.stdout + proc.stderr
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "card_tests.log").write_text(out)
@@ -3291,15 +3304,32 @@ def card_tests():
     for line in lines:
         if line.startswith("SKIPPED"):
             log(f"[card tests] {line}")
-    log(f"[card tests] passed {counts['passed']} skipped {counts['skipped']} failed "
+    refs = [json.loads(line[line.index(REPORT_PREFIX) + len(REPORT_PREFIX):])
+            for line in proc.stdout.splitlines() if REPORT_PREFIX in line]
+    for r in refs:
+        log(f"[card tests] {smi}: reference cases {r['file']}: {r['cuda_passed']} of "
+            f"{r['cuda_cases']} passed on the card; launches {r['launches']}; cases "
+            f"launching each kernel {r['cases_launching']}")
+    ref_files = {a.rsplit("/", 1)[-1] for a in CARD_TESTS_ARGS if "test_torch_ref_" in a}
+    launched = {k for r in refs for k, v in r["launches"].items() if v}
+    ref_passed = sum(r["cuda_passed"] for r in refs)
+    log(f"[card tests] {smi}: passed {counts['passed']} skipped {counts['skipped']} failed "
         f"{counts['failed']} errors {counts['errors']} deselected {counts['deselected']}"
-        f" (exit {proc.returncode}, {time.perf_counter() - t0:.1f} s)")
+        f" (exit {proc.returncode}, {wall:.1f} s); reference cases {ref_passed} of "
+        f"{sum(r['cuda_cases'] for r in refs)} passed, launching {sorted(launched)}")
     ok = (proc.returncode == 0 and counts["passed"] > 0 and not counts["failed"]
           and not counts["errors"])
     if not ok:
         log("\n".join(lines[-80:]))
     check(ok, f"card tests: exit {proc.returncode}, {counts}")
-    return counts
+    check({r["file"] for r in refs} == ref_files,
+          f"card tests: reference reports from {sorted(r['file'] for r in refs)}, "
+          f"expected {sorted(ref_files)}")
+    check(all(r["cuda_passed"] == r["cuda_cases"] > 0 for r in refs),
+          f"card tests: reference cases not all passed: {refs}")
+    check(launched == {k.source.name for k in kernels.ALL},
+          f"card tests: the reference cases launched {sorted(launched)} only")
+    return {**counts, "seconds": wall, "reference": refs}
 
 
 def pod_ranks_alone(worlds) -> int:

@@ -5,7 +5,9 @@ and the DV symbol chains.
 Synthesized signals go through the port's chains on the CPU and the JAX
 package's host decoders turn the outputs into text; the ops and the
 FAX/skimmer chains are held against the JAX package on the same numpy
-inputs, with the tolerances stated below.
+inputs, with the tolerances stated below.  The reference's own RTTY, CW
+and DMR-symbol cases run on the CPU and on the card in
+tests/test_torch_ref_secondary.py and tests/test_torch_ref_voice.py.
 """
 
 import numpy as np
@@ -14,8 +16,7 @@ import torch
 import jax.numpy as jnp
 
 from openwebrx_tpu.digimodes import psk as pskmod
-from openwebrx_tpu.digimodes.cw import CwDecoder, CwSkimmer, MORSE
-from openwebrx_tpu.digimodes.rtty import ITA2_LETTERS, LTRS, RttyFramer
+from openwebrx_tpu.digimodes.cw import CwSkimmer, MORSE
 from openwebrx_tpu.models.digital_voice import DV_FACTORY as JAX_DV
 from openwebrx_tpu.models.secondary import SECONDARY_FACTORY as JAX_SECONDARY
 from openwebrx_tpu.models.stages import plan_block_size as jax_plan
@@ -26,9 +27,7 @@ from openwebrx_tpu.ops.formats import Format as JaxFormat, StreamSpec as JaxSpec
 from openwebrx_tpu.runtime.chain import Program as JaxProgram
 from openwebrx_tpu_torch.models.digital_voice import DV_FACTORY, DvSymbolChain
 from openwebrx_tpu_torch.models.fax import CARRIER_HZ, DEVIATION_HZ
-from openwebrx_tpu_torch.models.secondary import (
-    SECONDARY_FACTORY, CwChain, CwSkimmerChain, PskChain, RttyChain,
-)
+from openwebrx_tpu_torch.models.secondary import SECONDARY_FACTORY, CwSkimmerChain, PskChain
 from openwebrx_tpu_torch.models.stages import plan_block_size
 from openwebrx_tpu_torch.ops import convert as tconvert
 from openwebrx_tpu_torch.ops import fsk as tfsk
@@ -146,57 +145,6 @@ class TestTextDecodes:
         assert all(a["secondary_fft.rows"].shape[-1] == 2048 for _, a in outs)
         decoded = pskmod.VaricodeDecoder().decode(pskmod.dbpsk_bits(symbols))
         assert text in decoded, decoded
-
-    def test_rtty(self):
-        baud, shift, f0 = 45.45, 170.0, 1500.0
-        bits = [1] * 8
-        for code in [LTRS] + [ITA2_LETTERS.index(c) for c in "RYRYRY"]:
-            bits += [0] + [(code >> i) & 1 for i in range(5)] + [1, 1]
-        bits += [1] * 8
-        chain = RttyChain(FS, baud, shift)
-        chain.set_frequency_offset(f0)
-        symbols = np.concatenate([y for y, _ in run_chain(chain, fsk_iq(bits, f0, baud, shift))])
-        decoded = RttyFramer().decode((symbols.real > 0).astype(np.uint8))
-        assert "RYRY" in decoded, decoded
-
-    def test_cw(self):
-        f0, dit = 800.0, 1.2 / 20.0
-        env = []
-        for ch in "TEST":
-            for j, sym in enumerate(MORSE_INV[ch]):
-                if j:
-                    env += [0.0] * int(dit * FS)
-                env += [1.0] * int((1 if sym == "." else 3) * dit * FS)
-            env += [0.0] * int(3 * dit * FS)
-        env = np.array(env + [0.0] * int(8 * dit * FS))
-        x = (0.6 * env * np.exp(2j * np.pi * f0 / FS * np.arange(len(env)))
-             ).astype(np.complex64)
-        chain = CwChain(FS)
-        chain.set_frequency_offset(f0)
-        envelope = np.concatenate([y for y, _ in run_chain(chain, x)])
-        decoded = CwDecoder(CwChain.ENV_RATE, wpm_hint=20.0).decode(envelope)
-        assert "TEST" in decoded.replace(" ", ""), decoded
-
-    def test_dmr_symbols_recovered(self):
-        """C4FM dibits at 4800 Bd through the DMR chain (240 kHz input):
-        > 95 % agree with the sent ones after the filters' delay."""
-        from openwebrx_tpu_torch.ops.firdes import root_raised_cosine_taps
-        fs, sps = 240000.0, 50
-        rng = np.random.default_rng(7)
-        dibits = rng.integers(0, 4, 2400)
-        impulses = np.zeros(len(dibits) * sps)
-        impulses[::sps] = np.array([1.0, 3.0, -1.0, -3.0])[dibits]
-        taps = root_raised_cosine_taps(sps, 0.2)
-        freqs = np.convolve(impulses, taps * sps / taps.sum(), mode="same") * 648.0
-        x = (0.5 * np.exp(2j * np.pi * np.cumsum(freqs) / fs)).astype(np.complex64)
-        chain = DV_FACTORY["dmr"](fs)
-        chain.set_frequency_offset(0.0)
-        out = np.concatenate([y for y, _ in run_chain(chain, x, fs)])
-        assert out.dtype == np.uint8
-        best = max(np.mean(dibits[200:n] == out[lag:][200:n])
-                   for lag in range(80)
-                   for n in [min(len(dibits), len(out) - lag)] if n >= 500)
-        assert best > 0.95, best
 
 
 def _jax_and_port(mode, fs, batch=(2,)):
