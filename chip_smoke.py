@@ -123,9 +123,14 @@ Phases (any failure raises and the script exits non-zero):
    scene's kernels (the IIR; the squelch, IIR and AGC on the full chain),
    and each kernel at the shapes the scenes handed it against its plain
    version; (b) ``pytest --noconftest -m cuda tests/test_torch_card.py
-   tests/test_torch_golden.py`` in a fresh interpreter where jax cannot be
-   imported, its pass, skip and fail counts on a line of their own (with
-   one card, TestSecondCard skips); a failure, an error or no pass fails.
+   tests/test_torch_golden.py tests/test_torch_ref_*.py`` (``CARD_TESTS_ARGS``)
+   in a fresh interpreter where jax cannot be imported, its pass, skip and
+   fail counts on a line of their own (with one card, TestSecondCard
+   skips), and each carrying file's ``[torch-ref]`` report: the
+   reference's own device-path cases, the PFB serving path, the secondary
+   bank, ``Fanout`` and the server among them; a failure, an error, no
+   pass, a carried card case that did not pass or a kernel no carried case
+   launched fails.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
@@ -281,7 +286,8 @@ SRV_AUDIO_BYTES_PER_S = 12000 / 2 * 1.08
 CARD_TESTS_ARGS = ("--noconftest", "-p", "no:cacheprovider", "-q", "-rs", "-m", "cuda",
                    "tests/test_torch_card.py", "tests/test_torch_golden.py",
                    "tests/test_torch_ref_ops.py", "tests/test_torch_ref_secondary.py",
-                   "tests/test_torch_ref_voice.py", "tests/test_torch_ref_runtime.py")
+                   "tests/test_torch_ref_voice.py", "tests/test_torch_ref_runtime.py",
+                   "tests/test_torch_ref_serving.py", "tests/test_torch_ref_server.py")
 CARD_TESTS_PRELUDE = """
 import sys
 class NoJax:

@@ -10,10 +10,14 @@ inputs, assertions and bounds.  Only what the port's API forces differs:
 ``SdrService.device``, and every module is the port's (the reference's
 host modules, copied).  As in tests/test_torch_server.py, the port's
 settings, users and caches live in a temporary data directory.
-``WsTestClient`` is tests/test_server.py's.  Every case runs on ``device``
-"cpu" (the plain versions) and "cuda" (the card; the ``cuda`` marker,
-skipped without a card).  The file imports no jax and nothing of
-``openwebrx_tpu``.
+``WsTestClient``, ``decode_wire`` and ``tone_power_ratio`` are the
+reference's, shared from tests/torch_ref_helpers.py.  Every wait, on a
+threaded runtime or on the protocol, has the safety net ``WAIT_S`` where
+the reference's is 10 to 30 s: a case ends when its condition is met, and
+the plain versions on a loaded CPU run slower than its compiled programs.
+Every case runs on ``device`` "cpu" (the plain versions) and "cuda" (the
+card; the ``cuda`` marker, skipped without a card).  The file imports no
+jax and nothing of ``openwebrx_tpu``.
 
 Reference cases left out, each because it runs no device code of the port
 (tests/test_torch_ref_coverage.py keeps this list):
@@ -25,11 +29,8 @@ Reference cases left out, each because it runs no device code of the port
 """
 
 import asyncio
-import base64
 import json
-import os
 import stat
-import struct
 import time
 
 import numpy as np
@@ -40,7 +41,6 @@ from openwebrx_tpu_torch.core.config import Config, CoreConfig
 from openwebrx_tpu_torch.core.map import Map
 from openwebrx_tpu_torch.core.metrics import Metrics
 from openwebrx_tpu_torch.core.property import PropertyLayer
-from openwebrx_tpu_torch.ops.adpcm import SYNC_INTERVAL, adpcm_decode_np
 from openwebrx_tpu_torch.reporting import Reporter, ReportingEngine
 from openwebrx_tpu_torch.runtime.device import DeviceRuntime
 from openwebrx_tpu_torch.sdr import SdrService
@@ -52,6 +52,9 @@ from openwebrx_tpu_torch.sources.file import SignalSource
 from openwebrx_tpu_torch.web.http import HttpServer
 from openwebrx_tpu_torch.web.server import build_router
 from torch_ref_device import card_report, device  # noqa: F401  (fixtures)
+from torch_ref_helpers import WsTestClient, decode_wire, tone_power_ratio
+
+WAIT_S = 300
 
 
 @pytest.fixture(autouse=True)
@@ -147,7 +150,7 @@ class TestServiceEngine:
             handler = svc_engine.ServiceHandler(rt)
             rt.start()
             try:
-                deadline = time.time() + 20
+                deadline = time.time() + WAIT_S
                 while not spots and time.time() < deadline:
                     time.sleep(0.25)
             finally:
@@ -171,7 +174,7 @@ class TestServiceEngine:
             handler = svc_engine.ServiceHandler(rt)
             rt.start()
             try:
-                deadline = time.time() + 20
+                deadline = time.time() + WAIT_S
                 metric = None
                 while time.time() < deadline:
                     metric = Metrics.shared().get("services.events.ISM")
@@ -187,82 +190,6 @@ class TestServiceEngine:
 
 
 # ----------------------------------------------------------- tests/test_passband.py
-class WsTestClient:
-    """Tiny RFC6455 client for protocol tests (tests/test_server.py's)."""
-
-    def __init__(self, reader, writer):
-        self.reader = reader
-        self.writer = writer
-
-    @classmethod
-    async def connect(cls, port, path="/ws/"):
-        reader, writer = await asyncio.open_connection("127.0.0.1", port)
-        key = base64.b64encode(os.urandom(16)).decode()
-        writer.write((f"GET {path} HTTP/1.1\r\nHost: localhost\r\n"
-                      "Upgrade: websocket\r\nConnection: Upgrade\r\n"
-                      f"Sec-WebSocket-Key: {key}\r\n"
-                      "Sec-WebSocket-Version: 13\r\n\r\n").encode())
-        await writer.drain()
-        head = await reader.readuntil(b"\r\n\r\n")
-        assert b"101" in head.split(b"\r\n")[0]
-        return cls(reader, writer)
-
-    async def send_text(self, text: str):
-        await self._send(0x1, text.encode())
-
-    async def _send(self, opcode, payload):
-        mask = os.urandom(4)
-        head = bytearray([0x80 | opcode])
-        n = len(payload)
-        if n < 126:
-            head.append(0x80 | n)
-        else:
-            head.append(0x80 | 126)
-            head += struct.pack(">H", n)
-        masked = bytes(b ^ mask[i % 4] for i, b in enumerate(payload))
-        self.writer.write(bytes(head) + mask + masked)
-        await self.writer.drain()
-
-    async def receive(self):
-        while True:
-            head = await self.reader.readexactly(2)
-            opcode = head[0] & 0x0F
-            length = head[1] & 0x7F
-            if length == 126:
-                length, = struct.unpack(">H", await self.reader.readexactly(2))
-            elif length == 127:
-                length, = struct.unpack(">Q", await self.reader.readexactly(8))
-            payload = await self.reader.readexactly(length) if length else b""
-            if opcode == 0x9:  # ping
-                await self._send(0xA, payload)
-                continue
-            return opcode, payload
-
-    async def expect_json(self, msg_type, timeout=10):
-        async def _wait():
-            while True:
-                opcode, payload = await self.receive()
-                if opcode == 0x1:
-                    msg = json.loads(payload)
-                    if msg.get("type") == msg_type:
-                        return msg
-        return await asyncio.wait_for(_wait(), timeout)
-
-    async def collect_binary(self, prefix, count, timeout=30):
-        frames = []
-
-        async def _wait():
-            while len(frames) < count:
-                opcode, payload = await self.receive()
-                if opcode == 0x2 and payload and payload[0] == prefix:
-                    frames.append(payload[1:])
-            return frames
-        return await asyncio.wait_for(_wait(), timeout)
-
-    async def close(self):
-        self.writer.close()
-
-
 @pytest.fixture()
 def usb_tone_config(device):
     Config.reset()
@@ -287,34 +214,6 @@ def usb_tone_config(device):
     Config.reset()
 
 
-def decode_wire(frames: list[bytes]) -> np.ndarray:
-    """Decode 0x02 wire bytes (SYNC-framed IMA ADPCM) to int16 PCM."""
-    data = b"".join(frames)
-    out = []
-    pos = 0
-    state = (0, 0)
-    while pos < len(data):
-        if data[pos:pos + 4] == b"SYNC":
-            idx, pred = np.frombuffer(data[pos + 4:pos + 8], "<i2")
-            state = (int(pred), int(idx))
-            pos += 8
-        chunk = data[pos:pos + SYNC_INTERVAL]
-        pos += len(chunk)
-        pcm, state = adpcm_decode_np(chunk, state)
-        out.append(pcm)
-    return np.concatenate(out) if out else np.zeros(0, np.int16)
-
-
-def tone_power_ratio(pcm: np.ndarray, f_tone: float, fs: float = 12000.0):
-    """Power in ±60 Hz of f_tone relative to total, in dB."""
-    x = pcm.astype(np.float32)
-    spec = np.abs(np.fft.rfft(x * np.hanning(len(x)))) ** 2
-    freqs = np.fft.rfftfreq(len(x), 1 / fs)
-    band = (freqs > f_tone - 60) & (freqs < f_tone + 60)
-    total = spec[(freqs > 50)].sum()
-    return 10 * np.log10(spec[band].sum() / max(total, 1e-12) + 1e-12)
-
-
 class TestPassband:
     @pytest.mark.usefixtures("usb_tone_config")
     class TestPassbandProtocol:
@@ -330,7 +229,7 @@ class TestPassband:
                 client = await WsTestClient.connect(port)
                 await client.receive()
                 await client.send_text("SERVER DE CLIENT client=t type=receiver")
-                await client.expect_json("config")
+                await client.expect_json("config", timeout=WAIT_S)
                 await client.send_text(json.dumps(
                     {"type": "dspcontrol", "action": "start"}))
                 await client.send_text(json.dumps(
@@ -343,14 +242,14 @@ class TestPassband:
                 # bandpass, so audio spectra can't see the cut on a clean
                 # tone — the SQUELCH POWER (s-meter) taps the signal right
                 # after the bandpass and shows it directly.
-                await client.collect_binary(0x02, 3)
-                pcm = decode_wire(await client.collect_binary(0x02, 4))
+                await client.collect_binary(0x02, 3, timeout=WAIT_S)
+                pcm = decode_wire(await client.collect_binary(0x02, 4, timeout=WAIT_S))
                 assert tone_power_ratio(pcm, 1500.0) > -6.0, "tone missing"
 
                 async def smeter_db(n=3):
                     vals = []
                     for _ in range(n):
-                        msg = await client.expect_json("smeter", timeout=10)
+                        msg = await client.expect_json("smeter", timeout=WAIT_S)
                         vals.append(msg["value"])
                     return float(np.median(vals))
 
@@ -361,7 +260,7 @@ class TestPassband:
                 await client.send_text(json.dumps(
                     {"type": "dspcontrol",
                      "params": {"low_cut": 0.0, "high_cut": 900.0}}))
-                await client.collect_binary(0x02, 2)   # transient flush
+                await client.collect_binary(0x02, 2, timeout=WAIT_S)   # transient flush
                 cut_db = await smeter_db()
                 assert cut_db < open_db - 25.0, \
                     f"high_cut not applied: {open_db:.1f} → {cut_db:.1f} dB"
@@ -370,7 +269,7 @@ class TestPassband:
                 await client.send_text(json.dumps(
                     {"type": "dspcontrol",
                      "params": {"low_cut": 1200.0, "high_cut": 3000.0}}))
-                await client.collect_binary(0x02, 2)
+                await client.collect_binary(0x02, 2, timeout=WAIT_S)
                 back_db = await smeter_db()
                 assert back_db > cut_db + 20.0, \
                     f"tone did not come back: {cut_db:.1f} → {back_db:.1f} dB"

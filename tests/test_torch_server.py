@@ -1,17 +1,18 @@
 """The port's web server (``openwebrx_tpu_torch.web``) on the CPU.
 
-Every scene of tests/test_server.py runs against the port, whose runtimes
-are built on ``SdrService.device = "cpu"``, with that file's assertions;
-then tests/test_settings_api.py's device/profile lifecycle, the profile and
-metrics endpoints, the CLI's start-up refusals, and one scripted session
-through the JAX server and the port's server in this process, compared
-message for message, waterfall peak for peak and tone for tone.
+The reference's own scenes of tests/test_server.py run on both devices in
+tests/test_torch_ref_server.py.  Here the port's runtimes are built on
+``SdrService.device = "cpu"`` for tests/test_settings_api.py's
+device/profile lifecycle, the profile and metrics endpoints, the CLI's
+start-up refusals, and one scripted session through the JAX server and the
+port's server in this process, compared message for message, waterfall
+peak for peak and tone for tone.
 
 On the CPU the port's waterfall row encoder is its plain per-nibble loop
-(about 1 s a 4096-bin row), so the scenes that read no waterfall take
-float rows (``fft_compression: none``); the full session and the parity
-session keep the compressed 4096-bin waterfall.  Every port test keeps its
-settings, users and caches in a temporary data directory.
+(about 1 s a 4096-bin row), so the metrics scene, which reads no
+waterfall, takes float rows (``fft_compression: none``); the parity
+session keeps the compressed 4096-bin waterfall.  Every port test keeps
+its settings, users and caches in a temporary data directory.
 """
 
 import asyncio
@@ -23,7 +24,6 @@ import os
 import shutil
 import signal
 import socket
-import stat
 import subprocess
 import sys
 import time
@@ -33,8 +33,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_server import WsTestClient
 from test_settings_api import http
+from torch_ref_helpers import WsTestClient
 
 from openwebrx_tpu_torch.core.config import Config, CoreConfig
 from openwebrx_tpu_torch.ops.adpcm import (
@@ -62,16 +62,6 @@ DEMO = {
                     "start_mod": "nfm"},
     },
 }
-
-
-def _demo(name, center, rate, start_freq, start_mod, signals, noise=1e-4):
-    return {"name": name, "type": "signal", "samp_rate": rate,
-            "center_freq": center, "throttle": False, "noise": noise,
-            "signals": signals,
-            "profiles": {"default": {"name": "Demo", "center_freq": center,
-                                     "samp_rate": rate,
-                                     "start_freq": start_freq,
-                                     "start_mod": start_mod}}}
 
 
 @pytest.fixture(autouse=True)
@@ -130,18 +120,6 @@ async def receiver(port):
     return client
 
 
-async def gather_text(client, needle, timeout=90):
-    text = ""
-
-    async def gather():
-        nonlocal text
-        while needle not in text:
-            msg = await client.expect_json("secondary_demod", timeout=60)
-            text += msg["value"]
-    await asyncio.wait_for(gather(), timeout)
-    return text
-
-
 def decoded_row(payload: bytes) -> np.ndarray:
     row_i16, _ = adpcm_decode_np(bytes(payload))
     return row_i16[COMPRESS_FFT_PAD_N:].astype(np.float32) / 100
@@ -168,239 +146,6 @@ def tone_snr(pcm, f_tone, fs=12000.0):
     band = (freqs > f_tone * 0.9) & (freqs < f_tone * 1.1)
     rest = (freqs > 50) & ~band
     return 10 * np.log10(spec[band].sum() / spec[rest].sum())
-
-
-# --------------------------------------------- tests/test_server.py scenes --
-@pytest.mark.usefixtures("demo_config")
-class TestServerEndToEnd:
-    def test_full_session(self):
-        asyncio.run(self._session())
-
-    async def _session(self):
-        async with serving() as port:
-            client = await receiver(port)
-            details = await client.expect_json("receiver_details")
-            assert "receiver_name" in details["value"]
-            modes = await client.expect_json("modes")
-            mods = [m["modulation"] for m in modes["value"]]
-            assert {"nfm", "am", "usb", "lsb", "cw", "sam", "wfm"} <= set(mods)
-            profiles = await client.expect_json("profiles")
-            assert profiles["value"][0]["id"] == "demo|default"
-            config = await client.expect_json("config")
-            assert config["value"]["samp_rate"] == 240000
-            assert config["value"]["center_freq"] == 145000000
-
-            await client.send_text(json.dumps(
-                {"type": "dspcontrol", "action": "start"}))
-            await client.send_text(json.dumps(
-                {"type": "dspcontrol",
-                 "params": {"offset_freq": 14500, "squelch_level": -150}}))
-            fft_frames = await client.collect_binary(0x01, 3, timeout=60)
-            assert all(len(f) > 1000 for f in fft_frames)
-            audio = await client.collect_binary(0x02, 2, timeout=60)
-            assert b"SYNC" in b"".join(audio)
-            smeter = await client.expect_json("smeter", timeout=30)
-            assert isinstance(smeter["value"], float)
-
-            row = decoded_row(fft_frames[-1])
-            assert len(row) >= 4096
-            peak = int(np.argmax(row[:4096]))
-            expected = 2048 + round(14500 / 240000 * 4096)
-            # FM deviation 3 kHz spreads the carrier ±51 bins at this rate
-            assert abs(peak - expected) <= 60
-
-            await client.send_text(json.dumps(
-                {"type": "dspcontrol", "params": {"mod": "am"}}))
-            audio2 = await client.collect_binary(0x02, 2, timeout=60)
-            assert audio2
-            await client.close()
-
-
-@pytest.mark.usefixtures("demo_config")
-class TestSecondaryDemod:
-    def test_psk31_text_over_protocol(self):
-        cfg = Config.get()
-        cfg["fft_compression"] = "none"
-        sdrs = dict(cfg["sdrs"])
-        sdrs["demo"]["signals"].append(
-            {"kind": "psk", "offset_hz": -60000.0, "amplitude": 0.5,
-             "text": "cq de tpu "})
-        cfg["sdrs"] = sdrs
-        asyncio.run(self._session())
-
-    async def _session(self):
-        async with serving() as port:
-            client = await receiver(port)
-            await client.expect_json("config")
-            await client.send_text(json.dumps(
-                {"type": "dspcontrol", "action": "start"}))
-            await client.send_text(json.dumps(
-                {"type": "dspcontrol",
-                 "params": {"offset_freq": -60000, "mod": "bpsk31"}}))
-            await client.expect_json("secondary_config", timeout=30)
-            text = await gather_text(client, "cq de tpu")
-            assert "cq de tpu" in text
-            await client.close()
-
-
-@pytest.mark.usefixtures("demo_config")
-class TestChatAndClients:
-    def test_chat_broadcast_between_clients(self):
-        Config.get()["fft_compression"] = "none"
-        asyncio.run(self._session())
-
-    async def _session(self):
-        from openwebrx_tpu_torch.core.clients import ClientRegistry
-        ClientRegistry.reset()
-        try:
-            async with serving() as port:
-                a = await receiver(port)
-                b = await receiver(port)
-                for c in (a, b):
-                    await c.expect_json("config")
-                await a.expect_json("clients")
-                await a.send_text(json.dumps(
-                    {"type": "sendmessage", "text": "hello all", "name": "op"}))
-                msg = await b.expect_json("chat_message")
-                assert msg["text"] == "hello all" and msg["name"] == "op"
-                msg_a = await a.expect_json("chat_message")
-                assert msg_a["text"] == "hello all"
-                await a.close()
-                await b.close()
-        finally:
-            ClientRegistry.reset()
-
-
-class TestPacketModeOverProtocol:
-    def test_aprs_beacon_decoded(self):
-        cfg = Config.get()
-        cfg["fft_compression"] = "none"
-        cfg["sdrs"] = {"demo": _demo(
-            "Packet Demo", 144800000, 240000, 144814500, "nfm",
-            [{"kind": "packet", "offset_hz": 14500.0, "amplitude": 0.5,
-              "source": "W1TST-9", "info": "!4903.50N/07201.75W-protocol test"}])}
-        asyncio.run(self._session())
-
-    async def _session(self):
-        async with serving() as port:
-            client = await receiver(port)
-            await client.expect_json("config")
-            await client.send_text(json.dumps(
-                {"type": "dspcontrol", "action": "start"}))
-            await client.send_text(json.dumps(
-                {"type": "dspcontrol",
-                 "params": {"offset_freq": 14500, "mod": "packet"}}))
-            text = await gather_text(client, "W1TST-9")
-            event = json.loads([line for line in text.splitlines()
-                                if "W1TST-9" in line][0])
-            assert event["mode"] == "APRS"
-            assert event["source"] == "W1TST-9"
-            assert abs(event.get("lat", 0) - 49.0583) < 0.01
-            # back to the underlying analog mode: the decoder detaches and
-            # bank audio resumes
-            await client.send_text(json.dumps(
-                {"type": "dspcontrol",
-                 "params": {"offset_freq": 14500, "mod": "nfm"}}))
-            audio = await client.collect_binary(0x02, 3, timeout=60)
-            assert len(audio) == 3
-            await client.close()
-
-
-class TestInteractiveFt8:
-    def test_ft8_spots_over_protocol(self, tmp_path, monkeypatch):
-        script = tmp_path / "fake_jt9"
-        script.write_text(
-            "#!/bin/sh\n"
-            "echo '222100 -15 -0.0  508 ~  CQ EA7MJ IM66'\n"
-            "echo '<DecodeFinished>  0  1'\n")
-        script.chmod(script.stat().st_mode | stat.S_IEXEC)
-
-        from openwebrx_tpu_torch.services import wsjt as wsjt_mod
-        from openwebrx_tpu_torch.services.wsjt import Ft8Profile
-
-        class FastProfile(Ft8Profile):
-            interval = 1
-
-            def decoder_commandline(self, file):
-                return [str(script), file]
-
-        monkeypatch.setattr(wsjt_mod, "enabled_profiles",
-                            lambda mode: [FastProfile()] if mode == "ft8" else [])
-        cfg = Config.get()
-        cfg["fft_compression"] = "none"
-        cfg["sdrs"] = {"demo": _demo(
-            "FT8 Demo", 14074000, 240000, 14074000, "usb",
-            [{"kind": "usb", "offset_hz": 0.0, "f_audio": 800.0, "amplitude": 0.3}])}
-        asyncio.run(self._session())
-
-    async def _session(self):
-        from openwebrx_tpu_torch.core.map import Map
-        from openwebrx_tpu_torch.services.queue import DecoderQueue
-        DecoderQueue.reset()
-        try:
-            async with serving() as port:
-                client = await receiver(port)
-                await client.expect_json("config")
-                await client.send_text(json.dumps(
-                    {"type": "dspcontrol", "action": "start"}))
-                await client.send_text(json.dumps(
-                    {"type": "dspcontrol",
-                     "params": {"mod": "usb", "secondary_mod": "ft8",
-                                "offset_freq": 0}}))
-                await client.expect_json("secondary_config", timeout=30)
-                text = await gather_text(client, "EA7MJ")
-                spot = json.loads([line for line in text.splitlines()
-                                   if "EA7MJ" in line][0])
-                assert spot["callsign"] == "EA7MJ"
-                assert spot["locator"] == "IM66"
-                assert spot["mode"] == "FT8"
-                assert spot["freq"] == 14074508
-                for _ in range(100):
-                    if "EA7MJ" in Map.shared().positions:
-                        break
-                    await asyncio.sleep(0.05)
-                assert "EA7MJ" in Map.shared().positions
-                await client.send_text(json.dumps(
-                    {"type": "dspcontrol", "params": {"secondary_mod": ""}}))
-                await client.close()
-        finally:
-            DecoderQueue.reset()
-
-
-class TestInteractiveIqExec:
-    def test_ism_events_over_protocol(self, tmp_path, monkeypatch):
-        script = tmp_path / "fake_rtl433"
-        script.write_text(
-            "#!/bin/sh\n"
-            "head -c 4096 > /dev/null\n"
-            'echo \'{"model":"Acurite-Tower","id":1234,"temperature_C":21.5}\'\n'
-            "cat > /dev/null\n")
-        script.chmod(script.stat().st_mode | stat.S_IEXEC)
-
-        from openwebrx_tpu_torch.services import exec_modes
-        spec = dict(exec_modes.IQ_EXEC_MODES["ism"])
-        spec["command"] = lambda rate, dial: [str(script)]
-        monkeypatch.setitem(exec_modes.IQ_EXEC_MODES, "ism", spec)
-        cfg = Config.get()
-        cfg["fft_compression"] = "none"
-        cfg["sdrs"] = {"demo": _demo("ISM Demo", 433920000, 1200000, 433920000,
-                                     "nfm", [], noise=1e-3)}
-        asyncio.run(self._session())
-
-    async def _session(self):
-        async with serving() as port:
-            client = await receiver(port)
-            await client.expect_json("config")
-            await client.send_text(json.dumps(
-                {"type": "dspcontrol", "action": "start"}))
-            await client.send_text(json.dumps(
-                {"type": "dspcontrol",
-                 "params": {"offset_freq": 0, "mod": "ism"}}))
-            text = await gather_text(client, "Acurite")
-            ev = json.loads([line for line in text.splitlines()
-                             if "Acurite" in line][0])
-            assert ev["mode"] == "ISM"
-            await client.close()
 
 
 # ------------------------------------------- settings, profile and metrics --
@@ -666,6 +411,12 @@ PARITY_AM = {"kind": "am", "offset_hz": -60000.0, "f_audio": 800.0,
              "amplitude": 0.4}
 PARITY_AUDIO_BYTES = 3600      # 0.6 s of 12 kHz ADPCM (7200 samples)
 TONE_SNR_MIN_DB = 15.0
+# a chat message sent after a listener's dspcontrol: the server handles a
+# client's messages in order, so its echo marks where the new parameters
+# have taken effect, and the frames after it are the new tuning's
+PARAMS_MARK = {"type": "sendmessage", "text": "parameters sent", "name": "parity"}
+# a safety net: each listen ends when its audio and rows are in
+LISTEN_WAIT_S = 300
 
 
 def bin_of(offset_hz):
@@ -676,23 +427,30 @@ async def scripted_session(pkg):
     """Two listeners on ``pkg``'s server, one after the other: the first
     takes the handshake messages and listens to the demo's NFM dial with
     the squelch open, the second to the AM carrier → (the four handshake
-    messages, decoded waterfall rows, NFM pcm, AM pcm)."""
+    messages, decoded waterfall rows, NFM pcm, AM pcm).  Each listener
+    keeps only the frames after the echo of ``PARAMS_MARK``."""
     async with serving(pkg) as port:
         async def listen(params, n_bytes, rows, hello=()):
             client = await receiver(port)
             messages = [(await client.expect_json(t))["value"] for t in hello]
             await client.send_text(json.dumps({"type": "dspcontrol", "action": "start"}))
             await client.send_text(json.dumps({"type": "dspcontrol", "params": params}))
-            audio, got_rows = bytearray(), []
+            await client.send_text(json.dumps(PARAMS_MARK))
+            audio, got_rows, marked = bytearray(), [], False
 
             async def collect():
-                while len(audio) < n_bytes or len(got_rows) < rows:
+                nonlocal marked
+                while not marked or len(audio) < n_bytes or len(got_rows) < rows:
                     opcode, payload = await client.receive()
-                    if opcode == 0x2 and payload and payload[0] == 0x02:
+                    if opcode == 0x1:
+                        msg = json.loads(payload)
+                        marked |= (msg.get("type") == "chat_message"
+                                   and msg.get("text") == PARAMS_MARK["text"])
+                    elif marked and opcode == 0x2 and payload and payload[0] == 0x02:
                         audio.extend(payload[1:])
-                    elif opcode == 0x2 and payload and payload[0] == 0x01:
+                    elif marked and opcode == 0x2 and payload and payload[0] == 0x01:
                         got_rows.append(decoded_row(payload[1:]))
-            await asyncio.wait_for(collect(), 120)
+            await asyncio.wait_for(collect(), LISTEN_WAIT_S)
             await client.close()
             return messages, decode_audio(bytes(audio)), got_rows
 
@@ -715,6 +473,11 @@ class TestParityWithJaxServer:
             config.reset()
             demo = copy.deepcopy(DEMO)
             demo["signals"].append(PARITY_AM)
+            # paced at its sample rate, as a receiver's source is: both
+            # servers read the same samples, and the JAX server's compiled
+            # loop cannot outrun the client sharing this event loop (it
+            # would be dropped 100 messages behind as a slow client)
+            demo["throttle"] = True
             config.get()["sdrs"] = {"demo": demo}
             try:
                 sides[pkg] = asyncio.run(scripted_session(pkg))
@@ -734,8 +497,8 @@ class TestParityWithJaxServer:
             for row in rows:
                 peak = int(np.argmax(row[:4096]))
                 assert min(abs(peak - k) for k in lines) <= PEAK_BINS_TOL, peak
-        # the AM listener's last 0.6 s (its first block may still be NFM,
-        # the profile's start mode)
+        # the AM listener's last 0.6 s (its first 0.1 s is the AGC's
+        # attack on the new carrier)
         tail = 2 * PARITY_AUDIO_BYTES
         for pcm_j, pcm_p, f_tone in ((nfm_j, nfm_p, 1000.0),
                                      (am_j[-tail:], am_p[-tail:], 800.0)):

@@ -7,7 +7,10 @@ otherwise runs the port on the card, through the hand-written kernels
 wherever the path has them.  On the card the fixture wraps every plain
 version of a kernel so that a CUDA tensor reaching one fails the case
 (at the call and again at teardown, should a runtime thread have caught
-it).  The carried files import this module, no jax and nothing of
+it).  On both devices an ERROR record of the runtime's loggers
+(``openwebrx_tpu_torch.runtime``: a block the loop thread failed to
+process or complete, a secondary chain that failed, which the loop logs
+and carries on past) fails the case at teardown.  The carried files import this module, no jax and nothing of
 ``openwebrx_tpu``, and need nothing of tests/conftest.py.
 
 ``card_report`` (module scope, autouse where imported) writes one line on
@@ -27,6 +30,7 @@ file ran (``kernels.CudaKernel.launches``, counted in this process) and
 import functools
 import importlib
 import json
+import logging
 from pathlib import Path
 
 import pytest
@@ -74,24 +78,43 @@ def _refusing_cuda(name, fn, reached):
     return plain
 
 
+class _ErrorRecords(logging.Handler):
+    """Keeps every ERROR record it is handed, from any thread."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
 @pytest.fixture(params=["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
 def device(request, monkeypatch):
-    if request.param == "cpu":
-        yield "cpu"
-        return
-    if not torch.cuda.is_available():
+    card = request.param == "cuda"
+    if card and not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
     reached = []
-    for module, name in PLAIN_VERSIONS:
-        mod = importlib.import_module(f"openwebrx_tpu_torch.{module}")
-        monkeypatch.setattr(mod, name,
-                            _refusing_cuda(f"{module}.{name}", getattr(mod, name), reached))
-    before = _launches()
-    yield "cuda"
-    torch.cuda.synchronize()
-    _CASE_KERNELS[request.node.nodeid] = {
-        n for n, v in _launches().items() if v > before[n]}
+    if card:
+        for module, name in PLAIN_VERSIONS:
+            mod = importlib.import_module(f"openwebrx_tpu_torch.{module}")
+            monkeypatch.setattr(mod, name, _refusing_cuda(f"{module}.{name}",
+                                                          getattr(mod, name), reached))
+        before = _launches()
+    errors = _ErrorRecords()
+    runtime_logger = logging.getLogger("openwebrx_tpu_torch.runtime")
+    runtime_logger.addHandler(errors)
+    try:
+        yield request.param
+    finally:
+        runtime_logger.removeHandler(errors)
+    if card:
+        torch.cuda.synchronize()
+        _CASE_KERNELS[request.node.nodeid] = {
+            n for n, v in _launches().items() if v > before[n]}
     assert not reached, f"plain versions reached on the card: {reached}"
+    assert not errors.records, "the runtime logged: " + "; ".join(
+        logging.Formatter().format(r) for r in errors.records)
 
 
 def on_card(nodeid: str) -> bool:
