@@ -6,6 +6,9 @@ the root of the checkout, and loaded with ``ctypes``.  The library name
 carries a hash of the source and the flags, so an edited kernel rebuilds and
 an unchanged one is reused.  Nothing is compiled or loaded at import: the
 CPU tests import every module of the port on machines without ``nvcc``.
+The server builds every kernel before it listens (:func:`build_all`) and
+loads every library in its warm-up (:func:`load_all`); anything else loads
+a library at its first launch.
 
 Every C entry point takes raw device pointers, sizes and a ``cudaStream_t``
 and returns ``cudaGetLastError()`` after its launch.
@@ -101,6 +104,11 @@ class CudaKernel:
                     self._fn = fn
         return self._fn
 
+    @property
+    def loaded(self) -> bool:
+        """Whether the library is loaded and its entry point bound."""
+        return self._fn is not None
+
     def function(self, symbol: str, argtypes: list, restype):
         """Another C function of the library, built and loaded first."""
         self._load()
@@ -162,6 +170,12 @@ def build_all() -> float:
     with concurrent.futures.ThreadPoolExecutor(len(ALL)) as pool:
         list(pool.map(lambda k: k.build(), ALL))
     return time.perf_counter() - t0
+
+
+def load_all() -> None:
+    """Build (where needed) and load every library of ``ALL``."""
+    for k in ALL:
+        k._load()
 
 
 def stream_handle(device) -> int:

@@ -43,6 +43,7 @@ block or packed (n, 2) float32 / int16 / uint8 pairs, or None).
 from __future__ import annotations
 
 import base64
+import concurrent.futures
 import importlib
 import json
 import logging
@@ -1401,3 +1402,46 @@ class DeviceRuntime:
             handle._smeter_decim += 1
             if handle._smeter_decim % 4 == 0:
                 handle.smeter_cb(float(v))
+
+
+def warm_up(runtime: DeviceRuntime) -> None:
+    """Pay a process's one-time costs of a bank's first block on
+    ``runtime``, a runtime built only for this and dropped after it: it
+    opens, in every bucket the rate offers, a listener and a service on a
+    dial the filterbank takes and on one at a channel edge (the full-rate
+    banks), subscribes to the waterfall, and runs silent blocks through
+    its block path until every bank has dispatched, fetched and delivered
+    once.  That loads every kernel's library and module and every PyTorch
+    op's, cuDNN for the FIR decimator, the cuFFT plans of these banks'
+    sizes (PyTorch caches them per device, for the whole process) and the
+    pinned staging.  Banks of another runtime built later at the same rate
+    and settings find all of that done; their routing and their output do
+    not depend on it.  It runs on a thread of its own that ends before
+    this returns, so the cuDNN and cuBLAS handles it made go back to
+    PyTorch's pool, where the next thread that needs one (a runtime's
+    loop) takes it.  Secondary, digital-voice and exec modes are not
+    warmed."""
+    def work():
+        if runtime.device.type == "cuda":
+            torch.cuda.set_device(runtime.device)
+            kernels.load_all()
+        fs = runtime.in_rate
+        for bucket in sorted(runtime.available_buckets):
+            m = runtime._pfb_m_for(bucket)
+            dials = (0.0,) if m < 8 else (fs / m, 1.5 * fs / m)
+            for service in (False, True):
+                for dial in dials:
+                    handle = runtime.open_channel(BUCKET_CHAIN_MODE[bucket],
+                                                  dial, service=service)
+                    handle.audio_cb = lambda wire, hd: None
+                    handle.smeter_cb = lambda level: None
+        runtime.subscribe_waterfall(lambda payload: None)
+        blocks = max(bank.chunk_ratio * getattr(bank, "delivery_stride", 1)
+                     for bank in runtime.banks.values())
+        silence = np.zeros(runtime.block, np.complex64)
+        for _ in range(blocks):
+            runtime._process_block(silence)
+
+    with concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="warm-up") as pool:
+        pool.submit(work).result()

@@ -3,16 +3,19 @@
 Reference ``owrx/sdr.py:12-286`` (MappedSdrSources reflection, enabled/
 failed tracking, AvailableProfiles flattening).  Source classes are
 resolved by the ``type`` key; every source gets a DeviceRuntime lazily,
-built on ``SdrService.device`` (the server sets it from ``--device``).
+built on ``SdrService.device`` (the server sets it from ``--device``);
+``SdrService.warm`` pays the process's one-time costs of those runtimes'
+banks before the server listens.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 
 from openwebrx_tpu_torch.core.config import Config
 from openwebrx_tpu_torch.core.property import PropertyLayer, Properties
-from openwebrx_tpu_torch.runtime.device import DeviceRuntime
+from openwebrx_tpu_torch.runtime.device import DeviceRuntime, warm_up
 from openwebrx_tpu_torch.sources.base import SdrSource
 from openwebrx_tpu_torch.sources.connector import ConnectorSource
 from openwebrx_tpu_torch.sources.direct import DirectSource
@@ -108,19 +111,35 @@ class SdrService:
             return None
         rt = cls._runtimes.get(source.id)
         if rt is None:
-            config = Config.get()
-            rt = DeviceRuntime(
-                source,
-                fft_size=int(config.get("fft_size", 4096)),
-                fft_fps=float(config.get("fft_fps", 9)),
-                compression=config.get("audio_compression", "adpcm"),
-                fft_compression=config.get("fft_compression", "adpcm"),
-                capacity=int(config.get("tpu_channel_capacity", 16)),
-                target_seconds=float(config.get("tpu_block_seconds", 0.1)),
-                device=cls.device,
-            )
+            rt = cls._new_runtime(source)
             cls._runtimes[source.id] = rt
         return rt
+
+    @classmethod
+    def _new_runtime(cls, source) -> DeviceRuntime:
+        config = Config.get()
+        return DeviceRuntime(
+            source,
+            fft_size=int(config.get("fft_size", 4096)),
+            fft_fps=float(config.get("fft_fps", 9)),
+            compression=config.get("audio_compression", "adpcm"),
+            fft_compression=config.get("fft_compression", "adpcm"),
+            capacity=int(config.get("tpu_channel_capacity", 16)),
+            target_seconds=float(config.get("tpu_block_seconds", 0.1)),
+            device=cls.device,
+        )
+
+    @classmethod
+    def warm(cls) -> float:
+        """Run ``warm_up`` on a throwaway runtime of every available
+        source, built as ``get_device`` builds its runtime; return the
+        seconds it took.  The runtimes ``get_device`` hands out are not
+        touched."""
+        t0 = time.perf_counter()
+        for source in cls.get_sources().values():
+            if source.is_available():
+                warm_up(cls._new_runtime(source))
+        return time.perf_counter() - t0
 
     @classmethod
     def get_profile_list(cls) -> list:

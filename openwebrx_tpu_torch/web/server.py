@@ -197,6 +197,24 @@ def open_device(name: str):
     return device
 
 
+def warm_sources(device) -> None:
+    """On a card, pay the process's one-time costs of every configured
+    source's banks (CUDA module loads, cuDNN, cuFFT plans, the kernels'
+    libraries) through throwaway runtimes (``SdrService.warm``) before the
+    server listens, so that first audio on a bank new to the process does
+    not wait for them (the reference keeps a persistent compilation cache
+    for the same reason).  On the CPU there is nothing to warm.  A failure
+    stops the server."""
+    if device.type != "cuda":
+        return
+    try:
+        seconds = SdrService.warm()
+    except Exception as e:
+        logger.exception("warm-up failed")
+        raise SystemExit(f"warm-up on {device} failed: {e!r}") from e
+    logger.info("warmed in %.1f s", seconds)
+
+
 async def main_async(args):
     SdrService.device = open_device(getattr(args, "device", "cuda"))
     if args.signal_demo:
@@ -219,6 +237,7 @@ async def main_async(args):
                     cluster.process_id, cluster.num_processes,
                     cluster.local_device_count, cluster.global_device_count)
     SdrService.load()
+    warm_sources(SdrService.device)
     # boot ordering per reference owrx/__main__.py:138-158: sources →
     # background services → web server
     from openwebrx_tpu_torch.services.engine import Services

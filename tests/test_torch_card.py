@@ -488,6 +488,51 @@ class TestOnCard:
             rt._complete_block(pend)
 
 
+WARM_UP_SCRIPT = """
+import json, sys
+from openwebrx_tpu_torch import kernels
+from openwebrx_tpu_torch.core.config import Config, CoreConfig
+from openwebrx_tpu_torch.sdr import SdrService
+CoreConfig.defaults["data_directory"] = sys.argv[1]
+CoreConfig.defaults["temporary_directory"] = sys.argv[1]
+Config.get()["sdrs"] = {"card": {"name": "Card", "type": "signal", "samp_rate": 3072000,
+                                 "center_freq": 14100000, "throttle": False,
+                                 "noise": 2e-3, "signals": []}}
+SdrService.device = "cuda"
+before = {k.source.name: k.loaded for k in kernels.ALL}
+seconds = SdrService.warm()
+rt = SdrService.get_device("card")
+print(json.dumps({"before": before, "after": {k.source.name: k.loaded for k in kernels.ALL},
+                  "launches": {k.source.name: k.launches for k in kernels.ALL},
+                  "banks": sorted(rt.banks), "handles": len(rt.handles),
+                  "seconds": seconds}))
+"""
+
+
+class TestWarmUpOnCard:
+    @pytest.mark.cuda
+    def test_warm_up_loads_every_kernel_and_builds_no_real_bank(self, cuda_device,
+                                                                tmp_path):
+        """In a fresh process: no kernel library is loaded before
+        SdrService.warm, every one of kernels.ALL is after it, the warm-up
+        launched all six, and the runtime get_device hands out has no bank
+        and no handle."""
+        import json
+        import subprocess
+        import sys
+        from pathlib import Path
+        repo = Path(__file__).resolve().parents[1]
+        proc = subprocess.run([sys.executable, "-c", WARM_UP_SCRIPT, str(tmp_path)],
+                              cwd=repo, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        names = {k.source.name for k in kernels.ALL}
+        assert got["before"] == dict.fromkeys(names, False)
+        assert got["after"] == dict.fromkeys(names, True)
+        assert all(got["launches"][n] > 0 for n in names), got["launches"]
+        assert got["banks"] == [] and got["handles"] == 0
+
+
 class TestSecondCard:
     @pytest.mark.cuda
     def test_every_wrapper_on_cuda1_matches_plain(self, second_card):

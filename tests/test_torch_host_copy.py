@@ -30,12 +30,14 @@ DATA_FILES = sorted(str(f.relative_to(REF)) for f in (REF / "data").rglob("*")
 
 DIVERGES = {
     "core/feature.py": "the 'core' probe checks that torch imports, not jax",
-    "sdr.py": "get_device builds the port's DeviceRuntime on SdrService.device",
+    "sdr.py": "get_device builds the port's DeviceRuntime on SdrService.device; "
+              "warm runs the port's warm_up on a throwaway runtime a source",
     "web/settings.py": "the profile endpoint captures torch.profiler, not "
                        "jax.profiler; the log endpoint's default logger is "
                        "the port's package",
-    "web/server.py": "--device (no CPU fallback; kernels built before the "
-                     "server listens), the cluster join through the port's "
+    "web/server.py": "--device (no CPU fallback; kernels built and, on a "
+                     "card, every source's banks warmed up before the server "
+                     "listens), the cluster join through the port's "
                      "torch.distributed init_cluster on that device, --config",
     "__main__.py": "every argument but 'admin ...' goes to the server: the "
                    "reference's parse_known_args takes an option's value "
