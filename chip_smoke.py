@@ -88,14 +88,19 @@ Phases (any failure raises and the script exits non-zero):
    tune to banks new to the process (the demo's NFM, AM and USB carriers,
    each tone at ≥ 15 dB; the first also runs tests/test_server.py's
    checks: handshake messages, smeter, the demo's carriers in their
-   waterfall bins), and SIGTERM stops it cleanly; it logs each listener's
-   first audio after dspcontrol and after connect, each process's
-   ``ready_s`` and warm-up seconds; then the startup split, in a fresh
-   process (``chip_smoke.py --startup-split ROOT``): each step from the
-   CUDA context to each listener's first audio, timed with synchronizes
-   at its edges, the warm-up's kernel launches counted apart from the
-   listeners', printed as a ``{"startup_split": ...}`` line before the
-   last lines. ``python3 chip_smoke.py --first-audio ROOT ...`` runs 7a's
+   waterfall bins); then, while a fourth plays NFM, a second connection
+   opens a USB listener with a PSK31 secondary; and SIGTERM stops it
+   cleanly; it logs each listener's first audio after dspcontrol and after
+   connect, the PSK31 connection's first secondary-FFT frame after its
+   dspcontrol and the playing listener's largest audio gap in the 2 s
+   after, each process's ``ready_s`` and warm-up seconds; then the
+   startup split, in a fresh process (``chip_smoke.py --startup-split
+   ROOT``): each step from the CUDA context to each listener's first
+   audio, then one program of every secondary, DV and IQ-tap signature
+   opened, run and closed in turn, each block timed with synchronizes at
+   its edges and split by op, the warm-up's kernel launches and
+   row-encoder shapes counted apart, printed as a ``{"startup_split":
+   ...}`` line before the last lines. ``python3 chip_smoke.py --first-audio ROOT ...`` runs 7a's
    processes and the split alone for each checkout given (the parent's
    from ``git archive`` beside this one);
    (b) ``HttpServer(build_router())`` in this process on a looped seeded
@@ -285,6 +290,12 @@ SERVER_RUNTIME_KW = {"fft_size": 4096, "fft_fps": 9.0, "compression": "adpcm",
                      "fft_compression": "adpcm", "capacity": 16,
                      "target_seconds": 0.1}
 SPLIT_STEADY_BLOCKS = 2      # blocks after a listener's first audio
+SPLIT_PROGRAM_BLOCKS = 12    # the most blocks the split runs a program for
+# 7a's secondary step: while an NFM listener plays, a second connection
+# opens a USB listener with a PSK31 secondary
+CLI_SECONDARY = ("usb", -200000.0, "bpsk31")
+CLI_PLAY_S = 1.0             # the NFM listener plays this long before it
+CLI_GAP_WINDOW_S = 2.0       # its audio gaps are read over this long after
 
 # Phase 7: the port's web server.  7a: the CLI's --signal-demo (2.4 MS/s);
 # 7b: in process, a looped seeded cu8 file at config #6's 8.192 MS/s,
@@ -1276,6 +1287,78 @@ def cli_server(root, adpcm, full, tag):
         if full and i == 0:
             out.update(rows=got, smeter=smeter)
 
+    async def secondary_step():
+        """While an NFM listener plays, a second connection opens a USB
+        listener with a PSK31 secondary (CLI_SECONDARY) → the ms to that
+        connection's first secondary-FFT frame (0x03) after its
+        dspcontrol, and the largest gap between the playing listener's
+        consecutive audio frames in the CLI_GAP_WINDOW_S after it."""
+        mode, dial, _ = CLI_LISTENERS[0]
+        player = await WsClient.connect(port)
+        await player.handshake()
+        await player.expect_json("config")
+        await player.send_json({"type": "dspcontrol", "action": "start", "params": {
+            "mod": mode, "offset_freq": int(dial), "squelch_level": -150}})
+        await player.send_json(CLI_MARK)
+        arrivals, tasks = [], []
+
+        async def play():
+            marked = False
+            while True:
+                opcode, payload = await player.receive()
+                if opcode == 0x1:
+                    msg = json.loads(payload)
+                    marked |= (msg.get("type") == "chat_message"
+                               and msg.get("text") == CLI_MARK["text"])
+                elif marked and opcode == 0x2 and payload[:1] == b"\x02":
+                    arrivals.append(time.perf_counter())
+
+        async def drain(client):
+            while True:
+                await client.receive()
+
+        async def wait_until(cond, what):
+            t0 = time.perf_counter()
+            while not cond():
+                check(time.perf_counter() - t0 < SRV_DEADLINE_S, f"7a {tag}: {what}")
+                for task in tasks:
+                    if task.done():
+                        task.result()
+                await asyncio.sleep(0.01)
+
+        tasks.append(asyncio.create_task(play()))
+        second = None
+        try:
+            await wait_until(lambda: arrivals and arrivals[-1] - arrivals[0] >= CLI_PLAY_S,
+                             f"{mode} never played")
+            second = await WsClient.connect(port)
+            await second.handshake()
+            await second.expect_json("config")
+            sec_mode, sec_dial, sec = CLI_SECONDARY
+            t_sec = time.perf_counter()
+            await second.send_json({"type": "dspcontrol", "action": "start", "params": {
+                "mod": sec_mode, "offset_freq": int(sec_dial), "squelch_level": -150,
+                "secondary_mod": sec}})
+            while True:
+                opcode, payload = await asyncio.wait_for(second.receive(), SRV_DEADLINE_S)
+                if opcode == 0x2 and payload[:1] == b"\x03":
+                    first_fft = time.perf_counter()
+                    break
+            tasks.append(asyncio.create_task(drain(second)))
+            t_end = t_sec + CLI_GAP_WINDOW_S
+            await wait_until(lambda: arrivals[-1] > t_end, f"{mode} stopped playing")
+        finally:
+            for task in tasks:
+                task.cancel()
+            player.close()
+            if second is not None:
+                second.close()
+        gaps = [b - a for a, b in zip(arrivals, arrivals[1:]) if b > t_sec and a < t_end]
+        frames = sum(t_sec < a <= t_end for a in arrivals)
+        return {"mode": sec, "first_fft_ms": (first_fft - t_sec) * 1e3,
+                "max_audio_gap_ms": max(gaps) * 1e3, "audio_frames": frames,
+                "steady_gap_ms": float(np.median(np.diff(arrivals))) * 1e3}
+
     async def session(proc, t_launch):
         deadline = time.perf_counter() + SRV_DEADLINE_S
         while True:
@@ -1290,6 +1373,7 @@ def cli_server(root, adpcm, full, tag):
         out["ready_s"] = time.perf_counter() - t_launch
         for i, (mode, dial, f_tone) in enumerate(CLI_LISTENERS):
             await listener(i, mode, dial, f_tone)
+        out["secondary"] = await secondary_step()
 
     log_path = work / f"cli_{tag}.log"
     cmd = [sys.executable, "-m", "openwebrx_tpu_torch", "--signal-demo",
@@ -1357,6 +1441,12 @@ def cli_server(root, adpcm, full, tag):
             f"process: first audio {lst['dsp_to_audio_ms']:.1f} ms after dspcontrol, "
             f"{lst['connect_to_audio_ms']:.1f} ms after connect; tone SNR "
             f"{lst['snr_db']:.1f} dB ({lst['samples']} samples)")
+    sec = out["secondary"]
+    log(f"[cli] {tag}: {sec['mode']} secondary on a second connection, new to the process: "
+        f"first secondary-FFT frame {sec['first_fft_ms']:.1f} ms after dspcontrol; the "
+        f"playing {CLI_LISTENERS[0][0]} listener's largest audio gap in the "
+        f"{CLI_GAP_WINDOW_S:.0f} s after {sec['max_audio_gap_ms']:.1f} ms "
+        f"({sec['audio_frames']} frames; median gap {sec['steady_gap_ms']:.1f} ms)")
     return out
 
 
@@ -1367,11 +1457,14 @@ def first_audio_summary(smi, runs, label):
     conn = [lst["connect_to_audio_ms"] for r in runs for lst in r["listeners"]]
     ready = [r["ready_s"] for r in runs]
     warm = [r["warm_s"] for r in runs]
+    fft = [r["secondary"]["first_fft_ms"] for r in runs]
+    gap = [r["secondary"]["max_audio_gap_ms"] for r in runs]
     out = {"listeners": len(dsp), "processes": len(runs),
            "dsp_to_audio_ms": {"p50": float(np.median(dsp)), "max": max(dsp), "all": dsp},
            "connect_to_audio_ms": {"p50": float(np.median(conn)), "max": max(conn),
                                    "all": conn},
-           "ready_s": ready, "warm_s": warm}
+           "ready_s": ready, "warm_s": warm,
+           "secondary_first_fft_ms": fft, "secondary_max_audio_gap_ms": gap}
     log(f"[cli] {label} {smi}: first audio on a bank new to the process, {len(dsp)} "
         f"listeners in {len(runs)} fresh processes: after dspcontrol p50 "
         f"{out['dsp_to_audio_ms']['p50']:.1f} ms, max {max(dsp):.1f} ms")
@@ -1379,6 +1472,9 @@ def first_audio_summary(smi, runs, label):
         f"{out['connect_to_audio_ms']['p50']:.1f} ms, max {max(conn):.1f} ms")
     log(f"[cli] {label} {smi}: ready_s {', '.join(f'{v:.3f}' for v in ready)}")
     log(f"[cli] {label} {smi}: warm-up s {', '.join(str(v) for v in warm)}")
+    log(f"[cli] {label} {smi}: {CLI_SECONDARY[2]} secondary new to the process: first "
+        f"secondary-FFT frame ms {', '.join(f'{v:.1f}' for v in fft)}; the playing "
+        f"listener's largest audio gap ms {', '.join(f'{v:.1f}' for v in gap)}")
     return out
 
 
@@ -1410,6 +1506,18 @@ def log_split(smi, split, label):
                 f"ms, complete {blk['complete_ms']:.1f} ms; " + ", ".join(
                     f"{k} {v:.2f}" for k, v in top) + (
                     f"; loads {json.dumps(blk['loads'])}" if blk["loads"] else ""))
+    if "warm_up_row_encoder_shapes" in split:
+        log(f"[split] {label}: the warm-up's row-encoder shapes "
+            f"{split['warm_up_row_encoder_shapes']}")
+    for rec in split.get("programs", []):
+        first = next(b for b in rec["blocks"] if b["delivered"])
+        top = sorted(first["ops"].items(), key=lambda kv: -kv[1])[:6]
+        log(f"[split] {label}: {rec['kind']} {','.join(rec['modes'])}: open "
+            f"{rec['open_ms']:.1f} ms; first block {rec['first_ms']:.1f} ms (feed "
+            f"{rec['first_feed_ms']:.1f}), steady {rec['steady_ms']:.1f} ms (feed "
+            f"{rec['steady_feed_ms']:.1f}); first: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in top) + (
+                f"; loads {json.dumps(first['loads'])}" if first["loads"] else ""))
 
 
 def cli_session(smi, paths, adpcm):
@@ -1464,6 +1572,110 @@ def first_audio_alone(roots) -> int:
     return 0
 
 
+def split_programs(rt):
+    """One of each program signature that a listener or a service can open
+    on ``rt`` besides a channel and the waterfall → [(kind, modes, key)]:
+    a secondary of every SECONDARY_FACTORY mode, the program of every
+    DV_FACTORY mode, an IQ tap at every (IF rate, wire) of
+    ExecAudioHandle.MODES and IQ_EXEC_MODES at most the source's rate, and
+    the M17 metadata tap.  A signature is the chain's class, block and
+    structure, computed on the host from the chain as its handle builds it
+    (the split runs the parent's package too)."""
+    from openwebrx_tpu_torch.models.digital_voice import DV_FACTORY
+    from openwebrx_tpu_torch.models.secondary import SECONDARY_FACTORY
+    from openwebrx_tpu_torch.models.stages import plan_block_size
+    from openwebrx_tpu_torch.ops.formats import Format, StreamSpec
+    from openwebrx_tpu_torch.runtime.device import ExecAudioHandle
+    from openwebrx_tpu_torch.services.exec_modes import IQ_EXEC_MODES
+    spec = StreamSpec(Format.COMPLEX_FLOAT, rt.in_rate)
+
+    def signature(kind, chain):
+        block = plan_block_size(chain, spec, 0.1)
+        chain.plan(spec, block)
+        return (kind, type(chain).__name__, block, chain.signature())
+    groups = {}
+    for kind, factory in (("secondary", SECONDARY_FACTORY), ("dv", DV_FACTORY)):
+        for mode, make in factory.items():
+            groups.setdefault(signature(kind, make(rt.in_rate)), []).append(mode)
+    taps = {}
+    for mode, (if_rate, wire, *_) in ExecAudioHandle.MODES.items():
+        taps.setdefault(("iq", float(if_rate), wire), []).append(mode)
+    for mode, iq in IQ_EXEC_MODES.items():
+        taps.setdefault(("iq", float(iq["if_rate"]), iq["wire"]), []).append(mode)
+    groups.update({key: modes for key, modes in sorted(taps.items())
+                   if key[1] <= rt.in_rate})
+    groups[("m17meta",)] = ["m17 metadata"]
+    return [(key[0], modes, key) for key, modes in groups.items()]
+
+
+class SplitFeed:
+    """A program fed by the runtime's block path as a handle feeds one:
+    the device block cut into the program's blocks, each processed;
+    ``delivered`` lists one entry a block run."""
+
+    def __init__(self, mode, program, chunks, delivered):
+        self.mode, self.program, self.chunks = mode, program, chunks
+        self.delivered = delivered
+
+    def feed(self, x):
+        for chunk in self.chunks.push(x):
+            self.program.process(chunk)
+            self.delivered.append(1)
+
+
+def open_split_program(rt, device_mod, kind, modes, key, dev):
+    """Open the program of ``kind`` for ``modes[0]`` on ``rt`` as its
+    handle does, starting no subprocess → (the object the runtime's block
+    path feeds, the list its deliveries go to, close)."""
+    delivered = []
+    if kind == "secondary":
+        handle = rt.open_secondary(modes[0], 0.0)
+        deliver = handle._deliver
+        handle._deliver = lambda y, fft: (delivered.append(1), deliver(y, fft))
+        handle.text_cb = lambda text: None
+        handle.fft_cb = lambda payload: None
+        return handle.bank, delivered, lambda: rt.release_secondary(handle)
+    if kind == "iq":
+        tap = rt.open_iq_channel(key[1], 0.0, key[2])
+        tap.iq_cb = lambda data: delivered.append(1)
+        return tap, delivered, lambda: rt.release_secondary(tap)
+    if kind == "dv":
+        make = getattr(device_mod, "dv_program", None)
+        if make is not None:
+            _, block, program = make(modes[0], rt.in_rate, 0.0, dev)
+        else:                       # as a DigitalVoiceHandle builds it
+            from openwebrx_tpu_torch.models.stages import plan_block_size
+            from openwebrx_tpu_torch.ops.formats import Format, StreamSpec
+            chain = device_mod.DV_FACTORY[modes[0]](rt.in_rate)
+            chain.set_frequency_offset(0.0)
+            spec = StreamSpec(Format.COMPLEX_FLOAT, rt.in_rate)
+            block = plan_block_size(chain, spec, 0.1)
+            program = device_mod.Program(chain, spec, block, device=dev)
+        fed = SplitFeed(modes[0], program, device_mod._Chunks(block, dev), delivered)
+    else:                           # the M17 metadata tap, a tap block a block
+        tap = device_mod.M17MetaTap(lambda meta: None, rt.host, dev)
+        decode = tap.decoder.feed
+        tap.decoder.feed = lambda dibits: (delivered.append(1), decode(dibits))
+        cs16 = bytes(4 * tap.block)
+        fed = SplitFeed("m17meta", tap.program, None, delivered)
+        fed.feed = lambda x: tap.feed_cs16(cs16)
+    with rt._lock:
+        rt.secondary_handles.append(fed)
+    return fed, delivered, lambda: rt.release_secondary(fed)
+
+
+def split_summary(rec):
+    """A program's split → its first delivering block's and its steady
+    delivering blocks' ms (the loop's whole block, and the program's own
+    feed)."""
+    ran = [b for b in rec["blocks"] if b["delivered"]]
+    whole = [b["dispatch_ms"] + b["complete_ms"] for b in ran]
+    return {"first_ms": whole[0], "steady_ms": float(np.median(whole[1:] or whole)),
+            "first_feed_ms": ran[0]["feed_ms"],
+            "steady_feed_ms": float(np.median([b["feed_ms"] for b in ran[1:]]
+                                              or [ran[0]["feed_ms"]]))}
+
+
 def startup_split(root) -> int:
     """``chip_smoke.py --startup-split ROOT``, in a fresh process: the
     steps of the server at ``ROOT`` from its start to first audio on each
@@ -1477,7 +1689,11 @@ def startup_split(root) -> int:
     audio and SPLIT_STEADY_BLOCKS more, each split into dispatch
     (``F.conv1d``, each ``torch.fft`` size, ``torch.quantile``, each
     kernel's launch with its library's load, the upload and the fetches'
-    start within) and completion (fetch and delivery).  Prints one
+    start within) and completion (fetch and delivery); then, beside those
+    listeners, one program of every ``split_programs`` signature at a
+    time, opened, run through the same blocks to SPLIT_STEADY_BLOCKS
+    deliveries past its first (its own feed timed too) and closed.  The
+    warm-up's row-encoder shapes are recorded.  Prints one
     ``{"startup_split": ...}`` line."""
     t_start = time.perf_counter()
     root = Path(root).resolve()
@@ -1486,6 +1702,7 @@ def startup_split(root) -> int:
     from openwebrx_tpu_torch import kernels
     from openwebrx_tpu_torch.core.property import PropertyLayer
     from openwebrx_tpu_torch.models import receiver
+    from openwebrx_tpu_torch.ops import adpcm as adpcm_mod
     from openwebrx_tpu_torch.ops import channelizer
     from openwebrx_tpu_torch.runtime import bank as bank_mod
     from openwebrx_tpu_torch.runtime import channelized
@@ -1536,12 +1753,21 @@ def startup_split(root) -> int:
     warm_up = getattr(device_mod, "warm_up", None)
     for k in kernels.ALL:
         k.launches = 0
+    seq_shapes = set()
+    encode_seq = adpcm_mod.encode_seq_kernel
+
+    def recording_seq(state, samples, *a, **k):
+        seq_shapes.add(tuple(samples.shape))
+        return encode_seq(state, samples, *a, **k)
+    adpcm_mod.encode_seq_kernel = recording_seq
     if warm_up is None:
         out["warm_up_ms"] = None
     else:
         step("warm_up_ms", lambda: warm_up(device_mod.DeviceRuntime(
             source(), device=dev, **SERVER_RUNTIME_KW)))
+    adpcm_mod.encode_seq_kernel = encode_seq
     out["warm_up_launches"] = {k.source.name: k.launches for k in kernels.ALL}
+    out["warm_up_row_encoder_shapes"] = sorted(seq_shapes)
     src = source()
     rt = step("runtime_ms", lambda: device_mod.DeviceRuntime(src, device=dev,
                                                              **SERVER_RUNTIME_KW))
@@ -1620,8 +1846,50 @@ def startup_split(root) -> int:
                     lst["audio_block"] = len(lst["blocks"]) - 1
             check(lst["audio_block"] is not None, f"startup split: {mode} never heard audio")
             listeners.append(lst)
+        # then, beside those listeners, one program of every other
+        # signature, each opened, run to SPLIT_STEADY_BLOCKS deliveries
+        # past its first and closed before the next
+        programs = []
+        for kind, modes, key in split_programs(rt):
+            acc.clear()
+            loads.clear()
+            t0 = time.perf_counter()
+            fed, delivered, close = open_split_program(rt, device_mod, kind, modes, key, dev)
+            sync()
+            rec = {"kind": kind, "modes": modes, "open_ms": (time.perf_counter() - t0) * 1e3,
+                   "open_split": dict(acc), "blocks": []}
+            feed_ms = []
+            feed = fed.feed
+
+            def timed_feed(x, feed=feed, feed_ms=feed_ms):
+                sync()
+                t0 = time.perf_counter()
+                try:
+                    return feed(x)
+                finally:
+                    sync()
+                    feed_ms.append((time.perf_counter() - t0) * 1e3)
+            fed.feed = timed_feed
+            while (len(rec["blocks"]) < SPLIT_PROGRAM_BLOCKS
+                   and len(delivered) <= SPLIT_STEADY_BLOCKS):
+                acc.clear()
+                loads.clear()
+                feed_ms.clear()
+                before = len(delivered)
+                d_ms, c_ms = loop.submit(run_block).result()
+                rec["blocks"].append({"dispatch_ms": d_ms, "complete_ms": c_ms,
+                                      "feed_ms": sum(feed_ms),
+                                      "delivered": len(delivered) - before,
+                                      "ops": dict(acc), "loads": dict(loads)})
+            close()
+            check(len(delivered) > SPLIT_STEADY_BLOCKS,
+                  f"startup split: {kind} {modes} delivered {len(delivered)} blocks in "
+                  f"{len(rec['blocks'])}")
+            rec.update(split_summary(rec))
+            programs.append(rec)
     check(rows, "startup split: no waterfall row")
     out["listeners"] = listeners
+    out["programs"] = programs
     out["launches"] = {k.source.name: k.launches for k in kernels.ALL}
     print(json.dumps({"startup_split": out}), flush=True)
     return 0

@@ -256,12 +256,14 @@ class SecondaryBank:
         self._carriers[slot] = carrier_hz
         self._push_params()
 
-    def feed(self, block):
+    def feed(self, block) -> int:
         """Complex samples (the device block in the runtime) → every
         complete bank block through the program; each member gets its
         row, and its secondary FFT rows as wire payloads (encoded on the
-        device) when it has an ``fft_cb``."""
+        device) when it has an ``fft_cb``.  Returns the bank blocks run."""
+        ran = 0
         for chunk in self._chunks.push(block):
+            ran += 1
             pending, _ = self.program.dispatch(chunk, to_host=False)
             rows = next((r for k, r in pending.aux.items()
                          if k.endswith("secondary_fft.rows")), None)
@@ -281,6 +283,7 @@ class SecondaryBank:
                     payloads[s] = [r[:nb].tobytes() for r in wire["rows"][i]]
             for s, handle in members:
                 handle._deliver(y[s], payloads.get(s))
+        return ran
 
 
 class SecondaryHandle:
@@ -492,8 +495,12 @@ class IqServiceHandle:
     def set_offset(self, offset_hz: float):
         self.chain.set_frequency_offset(offset_hz)
 
-    def feed(self, block):
+    def feed(self, block) -> int:
+        """Complex samples → every complete tap block through the program
+        and, in the wire format, to ``iq_cb``; returns the blocks run."""
+        ran = 0
         for chunk in self._chunks.push(block):
+            ran += 1
             iq, _ = self.program.process(chunk)
             if self.iq_cb is None:
                 continue
@@ -505,6 +512,18 @@ class IqServiceHandle:
                 self.iq_cb(interleaved.tobytes())
             else:
                 self.iq_cb(iq.astype(np.complex64).tobytes())
+        return ran
+
+
+def dv_program(mode: str, in_rate: float, offset_hz: float, device):
+    """The device program of digital-voice ``mode`` at ``in_rate``, tuned
+    to ``offset_hz``: → (chain, block, Program), as every DV listener, the
+    M17 metadata tap and ``warm_up`` build it."""
+    chain = DV_FACTORY[mode](in_rate)
+    chain.set_frequency_offset(offset_hz)
+    spec = StreamSpec(Format.COMPLEX_FLOAT, in_rate)
+    block = plan_block_size(chain, spec, 0.1)
+    return chain, block, Program(chain, spec, block, device=device)
 
 
 class M17MetaTap:
@@ -518,10 +537,8 @@ class M17MetaTap:
 
     def __init__(self, meta_cb, host=None, device="cuda"):
         m17_decoder, = host_names(host, "M17Decoder", what="M17 metadata")
-        self.chain = DV_FACTORY["m17"](self.IF_RATE)
-        spec = StreamSpec(Format.COMPLEX_FLOAT, self.IF_RATE)
-        self.block = plan_block_size(self.chain, spec, 0.1)
-        self.program = Program(self.chain, spec, self.block, device=device)
+        self.chain, self.block, self.program = dv_program(
+            "m17", self.IF_RATE, 0.0, device)
         self._chunks = _Chunks(self.block, self.program.device)
         self.decoder = m17_decoder(meta_cb)
 
@@ -686,12 +703,8 @@ class DigitalVoiceHandle:
         self.mode = mode
         self.audio_cb = None
         self.meta_cb = None
-        self.chain = DV_FACTORY[mode](runtime.in_rate)
-        self.chain.set_frequency_offset(offset_hz)
-        spec = StreamSpec(Format.COMPLEX_FLOAT, runtime.in_rate)
-        self.block = plan_block_size(self.chain, spec, 0.1)
-        self.program = Program(self.chain, spec, self.block,
-                               device=runtime.device)
+        self.chain, self.block, self.program = dv_program(
+            mode, runtime.in_rate, offset_hz, runtime.device)
         self._chunks = _Chunks(self.block, self.program.device)
         self.meta_parser = meta_parser(self._on_meta)
         # the native frame layer decodes talker metadata in-process; the
@@ -1404,23 +1417,110 @@ class DeviceRuntime:
                 handle.smeter_cb(float(v))
 
 
-def warm_up(runtime: DeviceRuntime) -> None:
-    """Pay a process's one-time costs of a bank's first block on
+# The programs warm_up runs besides the banks and the waterfall, by kind:
+# a mode of each signature (chain, rate, block) whose first block in a
+# fresh process cost more than 20 ms above a steady block at the 2.4 MS/s
+# demo on an NVIDIA H100 (chip_smoke.py --startup-split; PERF.md §6),
+# most of it CUDA and cuFFT modules read from disk on the machine's first
+# use: PSK31 (0.77 s), the CW decoder (0.61 s), DMR and YSF (0.14 s: an
+# 8192-point cuFFT plan), the CW skimmer and FreeDV's 8 kHz IQ tap (61 and
+# 62 ms: a 256- and a 1024-point plan) and the Meteor LRPT tap (25 ms: a
+# 32768-point plan).  Every other secondary, DV and IQ-tap signature cost
+# at most 13 ms once, less than warming it would add to the start-up (the
+# HD Radio tap alone takes 3 s to build there).
+WARM_MODES = {"secondary": ("bpsk31", "cwdecoder", "cwskimmer"), "dv": ("dmr",),
+              "iq": ("freedv", "meteor-lrpt")}
+
+
+class WarmProgram:
+    """A device program ``warm_up`` runs besides the channel banks and the
+    waterfall: its ``kind`` (a key of ``WARM_MODES``), the ``mode`` it was
+    built for, the ``program``, ``feed`` (the device block → the program
+    blocks it ran) and the blocks that ran and ``delivered`` their results
+    in the feed that first ran one."""
+
+    def __init__(self, kind: str, mode: str, program: Program, feed):
+        self.kind, self.mode, self.program, self.feed = kind, mode, program, feed
+        self.delivered = 0
+
+
+def _ignore(*args):
+    pass
+
+
+def _program_feed(program: Program):
+    """A Program's feed as a handle runs it: the device block cut into its
+    own blocks, each processed and fetched."""
+    chunks = _Chunks(program.block, program.device)
+
+    def feed(x) -> int:
+        ran = 0
+        for chunk in chunks.push(x):
+            program.process(chunk)
+            ran += 1
+        return ran
+    return feed
+
+
+def warm_programs(runtime: DeviceRuntime) -> list[WarmProgram]:
+    """The programs of ``WARM_MODES`` on ``runtime``, built as the handles
+    build them and none started: a capacity-2 ``SecondaryBank`` with one
+    member, its text decoder and an ``fft_cb`` (so its FFT rows are
+    encoded), the ``dv_program``, the ``IqServiceHandle`` of an
+    ``ExecAudioHandle`` or ``IQ_EXEC_MODES`` mode.  No subprocess is
+    started: the DV and exec modes' external decoders are not.  A secondary
+    mode whose host decoder ``runtime.host`` lacks (the ``LookupError`` its
+    handle raises), or an IQ mode whose IF is above the source's rate,
+    which the runtime would refuse to open, is left out and logged."""
+    from openwebrx_tpu_torch.services.exec_modes import IQ_EXEC_MODES
+    programs = []
+    for mode in WARM_MODES["secondary"]:
+        bank = SecondaryBank(runtime, mode)
+        try:
+            handle = SecondaryHandle(runtime, mode, 0.0, bank)
+        except LookupError as e:
+            logger.info("warm-up leaves out %s: %s", mode, e)
+            continue
+        handle.text_cb = handle.fft_cb = _ignore
+        programs.append(WarmProgram("secondary", mode, bank.program, bank.feed))
+    for mode in WARM_MODES["dv"]:
+        _, _, program = dv_program(mode, runtime.in_rate, 0.0, runtime.device)
+        programs.append(WarmProgram("dv", mode, program, _program_feed(program)))
+    for mode in WARM_MODES["iq"]:
+        if mode in ExecAudioHandle.MODES:
+            if_rate, wire = ExecAudioHandle.MODES[mode][:2]
+        else:
+            if_rate, wire = IQ_EXEC_MODES[mode]["if_rate"], IQ_EXEC_MODES[mode]["wire"]
+        if if_rate > runtime.in_rate:
+            logger.info("warm-up leaves out %s: its IF of %.0f S/s is above the "
+                        "source's %.0f S/s", mode, if_rate, runtime.in_rate)
+            continue
+        tap = IqServiceHandle(runtime, if_rate, 0.0, wire)
+        tap.iq_cb = _ignore
+        programs.append(WarmProgram("iq", mode, tap.program, tap.feed))
+    return programs
+
+
+def warm_up(runtime: DeviceRuntime) -> list[WarmProgram]:
+    """Pay a process's one-time costs of a program's first block on
     ``runtime``, a runtime built only for this and dropped after it: it
     opens, in every bucket the rate offers, a listener and a service on a
     dial the filterbank takes and on one at a channel edge (the full-rate
-    banks), subscribes to the waterfall, and runs silent blocks through
-    its block path until every bank has dispatched, fetched and delivered
-    once.  That loads every kernel's library and module and every PyTorch
-    op's, cuDNN for the FIR decimator, the cuFFT plans of these banks'
-    sizes (PyTorch caches them per device, for the whole process) and the
-    pinned staging.  Banks of another runtime built later at the same rate
-    and settings find all of that done; their routing and their output do
-    not depend on it.  It runs on a thread of its own that ends before
-    this returns, so the cuDNN and cuBLAS handles it made go back to
-    PyTorch's pool, where the next thread that needs one (a runtime's
-    loop) takes it.  Secondary, digital-voice and exec modes are not
-    warmed."""
+    banks), subscribes to the waterfall, builds ``warm_programs`` (the
+    secondary, digital-voice and IQ-tap programs of ``WARM_MODES``) and
+    runs silent blocks through its block path and those programs until
+    every bank and program has dispatched, fetched and delivered once (a
+    program is not fed again after it has).  That loads every kernel's
+    library and module and every PyTorch op's, cuDNN for the FIR
+    decimators, the cuFFT plans of these programs' sizes (PyTorch caches
+    them per device, for the whole process) and the pinned staging.
+    Programs of another runtime built later at the same rate and settings
+    find all of that done; their routing and their output do not depend
+    on it.  It runs on a thread of its own that ends before this returns,
+    so the cuDNN and cuBLAS handles it made go back to PyTorch's pool,
+    where the next thread that needs one (a runtime's loop) takes it.  It
+    starts no subprocess, and a failure inside it propagates.  → the
+    programs it ran besides the banks."""
     def work():
         if runtime.device.type == "cuda":
             torch.cuda.set_device(runtime.device)
@@ -1436,12 +1536,22 @@ def warm_up(runtime: DeviceRuntime) -> None:
                     handle.audio_cb = lambda wire, hd: None
                     handle.smeter_cb = lambda level: None
         runtime.subscribe_waterfall(lambda payload: None)
-        blocks = max(bank.chunk_ratio * getattr(bank, "delivery_stride", 1)
-                     for bank in runtime.banks.values())
+        programs = warm_programs(runtime)
+        blocks = max([bank.chunk_ratio * getattr(bank, "delivery_stride", 1)
+                      for bank in runtime.banks.values()]
+                     + [-(-p.program.block // runtime.block) for p in programs])
         silence = np.zeros(runtime.block, np.complex64)
+        xdev = runtime._upload(silence)
         for _ in range(blocks):
             runtime._process_block(silence)
+            for p in programs:
+                if not p.delivered:
+                    p.delivered = p.feed(xdev)
+        idle = [p.mode for p in programs if not p.delivered]
+        if idle:
+            raise RuntimeError(f"warm-up: no result from {idle} in {blocks} blocks")
+        return programs
 
     with concurrent.futures.ThreadPoolExecutor(
             1, thread_name_prefix="warm-up") as pool:
-        pool.submit(work).result()
+        return pool.submit(work).result()

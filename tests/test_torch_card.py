@@ -489,9 +489,10 @@ class TestOnCard:
 
 
 WARM_UP_SCRIPT = """
-import json, sys
+import json, subprocess, sys
 from openwebrx_tpu_torch import kernels
 from openwebrx_tpu_torch.core.config import Config, CoreConfig
+from openwebrx_tpu_torch.ops import adpcm
 from openwebrx_tpu_torch.sdr import SdrService
 CoreConfig.defaults["data_directory"] = sys.argv[1]
 CoreConfig.defaults["temporary_directory"] = sys.argv[1]
@@ -499,14 +500,31 @@ Config.get()["sdrs"] = {"card": {"name": "Card", "type": "signal", "samp_rate": 
                                  "center_freq": 14100000, "throttle": False,
                                  "noise": 2e-3, "signals": []}}
 SdrService.device = "cuda"
+kernels.build_all()         # as the server does before it warms up
+popen, shapes = [], set()
+def no_popen(*args, **kwargs):
+    popen.append(repr(args))
+    raise RuntimeError("the warm-up started a subprocess")
+subprocess.Popen = no_popen
+encode_seq = adpcm.encode_seq_kernel
+def recording(state, samples, *args, **kwargs):
+    shapes.add(tuple(samples.shape))
+    return encode_seq(state, samples, *args, **kwargs)
+adpcm.encode_seq_kernel = recording
 before = {k.source.name: k.loaded for k in kernels.ALL}
 seconds = SdrService.warm()
 rt = SdrService.get_device("card")
 print(json.dumps({"before": before, "after": {k.source.name: k.loaded for k in kernels.ALL},
                   "launches": {k.source.name: k.launches for k in kernels.ALL},
                   "banks": sorted(rt.banks), "handles": len(rt.handles),
+                  "secondary_banks": sorted(rt.secondary_banks),
+                  "secondary_handles": len(rt.secondary_handles),
+                  "row_encoder_shapes": sorted(shapes), "popen": popen,
                   "seconds": seconds}))
 """
+# the secondary FFT's rows at the row encoder: 2048 bins, 10 pad samples,
+# whole 16-byte vectors (ops/adpcm.py fft_row_samples)
+SECONDARY_FFT_SAMPLES = 2064
 
 
 class TestWarmUpOnCard:
@@ -515,8 +533,10 @@ class TestWarmUpOnCard:
                                                                 tmp_path):
         """In a fresh process: no kernel library is loaded before
         SdrService.warm, every one of kernels.ALL is after it, the warm-up
-        launched all six, and the runtime get_device hands out has no bank
-        and no handle."""
+        launched all six, the row encoder at the secondary FFT's row width
+        among them, it started no subprocess, and the runtime get_device
+        hands out has no bank, no handle and no secondary bank or
+        handle."""
         import json
         import subprocess
         import sys
@@ -531,6 +551,10 @@ class TestWarmUpOnCard:
         assert got["after"] == dict.fromkeys(names, True)
         assert all(got["launches"][n] > 0 for n in names), got["launches"]
         assert got["banks"] == [] and got["handles"] == 0
+        assert got["secondary_banks"] == [] and got["secondary_handles"] == 0
+        assert got["popen"] == []
+        assert any(shape[-1] == SECONDARY_FFT_SAMPLES for shape in got["row_encoder_shapes"]), \
+            got["row_encoder_shapes"]
 
 
 class TestSecondCard:
