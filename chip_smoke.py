@@ -45,27 +45,45 @@ Phases (any failure raises and the script exits non-zero):
    runtime's ``SecondaryBank`` fed device chunks, its FFT rows encoded on
    the card, against the same bank on the CPU;
 5. the paths at full width, each fed seeded device-resident IQ with every
-   result fetched to host numpy, each with its kernels' launch counters set
-   to 0 just before it and checked against the expected counts just after:
-   the 1024-channel USB bank (BASELINE config #5), the 1024-channel NFM
-   bank, the 2048-channel AM bank, the 128-channel WFM bank (0.2 s blocks),
-   BASELINE config #1 (2.4 MS/s NFM through ``build_program``), config #2
-   (a compressed 4096-bin waterfall, a PFB listener and a full-rate edge
-   dial on one 2.4 MS/s block), config #4 (a ``Fanout`` of 16 BPSK31 and 16
-   USB channels delivered in 6-block batches, checked against the CPU) and
-   the USB bank beside a 4096-bin waterfall of its 49.152 MS/s input; then,
-   through the port's ``DeviceRuntime`` fed uint8 wire blocks at 8.192 MS/s
-   from a looped seeded source, BASELINE config #3 (64 background USB dials
-   on one PFB bank, raw audio in 6-block batches, pipeline depth 2),
-   config #6 (256 interactive ADPCM listeners with four retunes a block and
-   an edge drag to the full-rate bank and back every 8th block, depth 3)
-   and the threaded loop (``start()``, config #6's listeners and a
-   compressed waterfall, ``stop()``), each failing on any ERROR record of
-   the runtime's logger.  Each path checks its outputs' shapes and dtypes,
-   decodes its tones (≥ 15 dB SNR; the waterfall's in their bins) and logs
-   ms/block, MS/s, its real-time multiple and peak memory; the shapes the
-   paths hand the AGC, the ADPCM encoders and the squelch are recorded and
-   must be the ones phase 3 checked;
+   result fetched to host numpy: the 1024-channel USB bank (BASELINE
+   config #5), the 1024-channel NFM bank, the 2048-channel AM bank, the
+   128-channel WFM bank (0.2 s blocks), BASELINE config #1 (2.4 MS/s NFM
+   through ``Program``), config #2 (a compressed 4096-bin waterfall, a
+   PFB listener and a full-rate edge dial on one 2.4 MS/s block), config
+   #4 (a ``Fanout`` of 16 BPSK31 and 16 USB channels delivered in 6-block
+   batches, its first batch checked against the CPU), the 4096-bin
+   waterfall of the 49.152 MS/s input alone and beside the USB bank;
+   then, through the port's ``DeviceRuntime`` fed uint8 wire blocks at
+   8.192 MS/s from a looped seeded source, BASELINE config #3 (64
+   background USB dials on one PFB bank, raw audio in 6-block batches,
+   pipeline depth 2), config #6 (256 interactive ADPCM listeners with
+   four retunes a block and an edge drag to the full-rate bank and back
+   every 8th block, depth 3) and the threaded loop (``start()``, config
+   #6's listeners and a compressed waterfall, ``stop()``), each failing on
+   any ERROR record of the runtime's logger.  Each path runs twice on the
+   same blocks: its graph and its eager step (``graph=False``, which
+   DeviceRuntime never passes: tests/torch_graph_scenes.py
+   ``runtime_graph`` patches it in), in rounds E G G E E G of ALT_BLOCKS
+   blocks (config #6: twice over, after a warm-up in which both its banks
+   capture).  Every round sets the kernels' launch counters to 0 just
+   before it and holds them to the path's predicted launches just after;
+   ALT_PROFILE_BLOCKS more blocks a side run under torch.profiler, whose
+   trace must hold each hand-written kernel as often as the counters say
+   (so the launches a replay adds to the counters are held to the kernels
+   that ran).  The graph's outputs equal the eager step's bit for bit; the
+   eager side captured nothing; each graph step captured once and
+   replayed on every block after its first.  The graph side's outputs are
+   checked for shapes and dtypes and their tones decoded (≥ 15 dB SNR; the
+   waterfall's in their bins); each path logs ms/block (the graph side's,
+   with MS/s, its real-time multiple and peak memory), the host split
+   (churn, dispatch, wait, deliver) of each side and round, each graph's
+   capture ms and pool, the profiled blocks' kernel events and idle share,
+   and the device's own time a block (each graph replayed back to back)
+   with the idle share it gives; config #6 also what a control change
+   costs its interactive bank at the next block (params rebuilt, then
+   copied into the graph's static params).  The shapes the paths hand the
+   AGC, the ADPCM encoders and the squelch are recorded and must be the
+   ones phase 3 checked;
 6. kernel device times (CUDA events, launches queued ahead of the device)
    beside their bounds, the plain versions and, for the fold, one PyTorch
    call computing the same function; the fold and the IIR warm and cold;
@@ -113,7 +131,13 @@ Phases (any failure raises and the script exits non-zero):
    /metrics, no ERROR record; it logs ms/block, the host split, the
    first-audio latency from ``dspcontrol`` (p50, p95) and peak memory;
    (c) ``/api/profile`` on the running server returns a trace with CUDA
-   kernel events.
+   kernel events, in which every block the trace holds whole (the
+   kernels grouped by the loop's idle gaps) ran the hand-written kernels
+   SRV_LAUNCHES_PER_BLOCK times; then 7b's server again in short sessions,
+   its runtime built with the eager step or the graph in ALT_ORDER, each
+   with its launches a block from the counters and from its profile's
+   trace (held alike), host split and (graph) replay time; the eager
+   sessions captured no graph.
 8. config #5's USB bank sharded over ranks through
    ``openwebrx_tpu_torch.parallel`` (run after phase 7, inside phase 5's
    record of the kernels' shapes): (a) one rank over NCCL in this process:
@@ -162,6 +186,7 @@ import json
 import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -174,7 +199,15 @@ M = 1024               # 1024 PFB channels at 48 kHz
 CFG1_FS = 2.4e6        # BASELINE config #1: 2.4 MS/s, one NFM listener
 CFG1_OFFSET = 145000.0
 WARMUP_BLOCKS = 3
-TIMED_BLOCKS = 20
+# Phase 5: each path's eager step (graph=False) against its graph, rounds
+# of ALT_BLOCKS blocks in this order (E eager, G graph) after ALT_WARM
+# blocks each, then ALT_PROFILE_BLOCKS each under torch.profiler; a graph
+# replayed ALT_DEVICE_REPLAYS times back to back gives its device time
+ALT_ORDER = (False, True, True, False, False, True)
+ALT_BLOCKS = 6
+ALT_WARM = 2
+ALT_PROFILE_BLOCKS = 2
+ALT_DEVICE_REPLAYS = 10
 TONE_CHANNELS = (100, 517, 900)     # dials i (of the 1024) given a tone
 TONE_AUDIO_HZ = 1000.0
 FM_DEVIATION = {"nfm": 3000.0, "wfm": 75000.0}
@@ -265,9 +298,12 @@ SEQ_REAL_ROWS = {"cfg2 row": (2.4e6, 120000, 20.0, (-262000.0, 618000.0)),
 RT_FS = 8.192e6
 RT_LOOP_BLOCKS = 2          # the source's loop: 0.4 s, every tone continuous
 RT_NOISE, RT_TONE_AMP = 0.03, 0.05
-CFG3_DIALS, CFG3_WARM, CFG3_TIMED = 64, 13, 24   # warm: two 6-block deliveries + 1
-CFG6_LISTENERS, CFG6_WARM, CFG6_TIMED = 256, 6, 24
-CFG6_TONES = (200, 201, 202, 203)     # listeners the churn never moves
+CFG3_DIALS = 64
+# config #6: its warm-up holds the first two edge drags (blocks 4 and 12),
+# so the full-rate bank runs its eager block and its capture before round
+# 1; its rounds are ALT_ORDER twice over
+CFG6_LISTENERS, CFG6_WARM, CFG6_ORDER = 256, 13, ALT_ORDER * 2
+CFG6_TONES = (248, 249, 250, 251)     # listeners the churn never moves
 RT_DEADLINE_S = 120.0       # the threaded run waits at most this long
 RT_THREADED_ROWS, RT_THREADED_FRAMES = 20, 10   # ... for this many rows and frames
 
@@ -309,10 +345,16 @@ SRV_NOISE, SRV_CARRIER_AMP = 0.01, 0.03   # 64 carriers: ~5 sigma to clipping
 # launch for the waterfall's two rows
 SRV_LAUNCHES_PER_BLOCK = {"fold.cu": 3, "adpcm.cu": 3, "iir.cu": 2, "agc.cu": 3,
                           "squelch.cu": 3, "adpcm_seq.cu": 1}
+# a trace of the server's loop: kernels further apart than this are in two
+# blocks (a block's kernels run within ~50 ms, the loop's period is 200 ms)
+SRV_BLOCK_GAP_MS = 60.0
 SRV_WARM_S = 3.0             # after every listener heard its first audio
 SRV_WINDOW_S = 15.0          # the timed window
 SRV_RATE_TOL = 0.10          # audio bytes a second against nominal
 SRV_PROFILE_S = 1.0          # 7c: /api/profile?seconds=
+# 7b alternated (eager and graph sessions in ALT_ORDER): after every
+# listener heard audio, a warm-up, the timed window and a profile
+SRV_ALT_WARM_S, SRV_ALT_WINDOW_S, SRV_ALT_PROFILE_S = 1.0, 3.0, 1.0
 SRV_DEADLINE_S = 120.0       # any wait of phase 7 (start-up, first audio)
 # 12 kHz IMA ADPCM: 4 bits a sample plus an 8-byte SYNC header every 100
 # bytes (ops/adpcm.py SyncFramer)
@@ -836,80 +878,848 @@ def secondary_bank_check(torch, dev):
           "SecondaryBank on the card disagrees with the CPU")
 
 
-def runtime_paths(torch, dev, smi, paths, launches_by_path):
-    """BASELINE configs #3 and #6 and the threaded loop through the port's
-    DeviceRuntime (phase 5): adds each path's report to ``paths`` and its
-    kernel launches to ``launches_by_path``."""
-    from openwebrx_tpu_torch import kernels
-    from openwebrx_tpu_torch.ops import adpcm
-
-    # uint8 wire blocks at 8.192 MS/s (0.2 s blocks); the runtime's logger
-    # is watched for ERROR records
-    from collections import deque
+def cfg3_runtime(dev, graph=True):
+    """Config #3 (bench.py:347-402) through the port's DeviceRuntime: 64
+    background USB dials on distinct PFB channels, raw audio in 6-block
+    batches, pipeline depth 2, its banks built with ``graph`` → (runtime,
+    source, dials, the dials given a tone, {dial: audio chunks})."""
     from openwebrx_tpu_torch.runtime import device as rtdev
-    errors = ErrorRecords()
-    logging.getLogger(rtdev.__name__).addHandler(errors.handler)
+    from torch_graph_scenes import runtime_graph
+    m3 = 256
+    dials = [pfb_dial((i * (m3 // 72) + 2) % m3, RT_FS, m3) for i in range(CFG3_DIALS)]
+    tones = (0, 21, 42, 63)
+    src = LoopSource("cfg3", RT_FS, [dials[i] for i in tones], seed=3)
+    audio = {i: [] for i in range(CFG3_DIALS)}
+    with runtime_graph(graph):
+        rt = rtdev.DeviceRuntime(src, target_seconds=0.1, service_delivery_seconds=0.6,
+                                 pipeline_depth=2, device=dev)
+        check(rt._pfb_channels() == m3 and rt.block == 1638400,
+              f"config #3 plan: {rt._pfb_channels()} channels, block {rt.block}")
+        for i, dial in enumerate(dials):
+            h = rt.open_channel("usb", dial, service=True)
+            h.audio_cb = lambda wire, hd=False, i=i: audio[i].append(wire)
+    return rt, src, dials, tones, audio
 
-    def runtime_drive(label, rt, src, n_warm, n_timed, before_block=None):
-        """Warm-up blocks, then every count set to 0 and ``n_timed`` blocks
-        through the runtime's own pipeline (dispatch, complete the oldest
-        once ``pipeline_depth`` are in flight), ``before_block(i)`` ahead
-        of each.  The host clock splits the timed blocks into the churn,
-        dispatch (upload, parameters, launches), the wait for a block's
-        copies and delivery (numpy, framing, callbacks); → (wall s,
-        launches, peak MiB, host ms a block by part)."""
-        pending = deque()
+
+# config #6's churn: a dial that straddles a channel edge of its 256-channel
+# filterbank (served full rate), and the dial a listener retunes to
+CFG6_EDGE = RT_FS / 256 * 1.5 - 200.0
+
+
+def cfg6_dial(j):
+    return float(np.fft.fftfreq(256, 1 / RT_FS)[(j * 7 + 3) % 256] + 600.0)
+
+
+def cfg6_runtime(dev, label, seed, graph=True):
+    """Config #6 (bench.py:498-583) through the port's DeviceRuntime: 256
+    interactive ADPCM listeners on a 256-channel filterbank, depth 3, the
+    full-rate bank built once by a dial dragged to a channel edge and
+    back, the banks built with ``graph`` → (runtime, source, handles,
+    {listener: wire frames})."""
+    from openwebrx_tpu_torch.runtime import device as rtdev
+    from torch_graph_scenes import runtime_graph
+    src = LoopSource(label, RT_FS, [], seed=seed)
+    frames = {i: [] for i in range(CFG6_LISTENERS)}
+    handles = []
+    with runtime_graph(graph):
+        rt = rtdev.DeviceRuntime(src, target_seconds=0.1, capacity=16, pfb_capacity=256,
+                                 pipeline_depth=3, device=dev)
+        m = rt._pfb_m_for("ssb")
+        dials = [pfb_dial((i * (m // 256) + i // 128) % m, RT_FS, m)
+                 for i in range(CFG6_LISTENERS)]
+        src.dials = [dials[i] for i in CFG6_TONES]
+        for i, dial in enumerate(dials):
+            h = rt.open_channel("usb", dial)
+            h.audio_cb = lambda wire, hd=False, i=i: frames[i].append(wire)
+            handles.append(h)
+        check(m == 256 and {h.bucket_key for h in handles} == {"pfbi:ssb"},
+              f"{label}: {m} channels, listeners in {sorted({h.bucket_key for h in handles})}")
+        handles[0].set_offset(CFG6_EDGE)           # the full-rate bank, built once
+        check(handles[0].bucket_key == "ssb", f"{label}: the edge dial is not served full rate")
+        handles[0].set_offset(cfg6_dial(0))
+        check(handles[0].bucket_key == "pfbi:ssb", f"{label}: the edge dial did not come back")
+    return rt, src, handles, frames
+
+
+class Cfg6Churn:
+    """Config #6's churn before block i: four retunes, and every 8th block
+    a listener dragged across a channel edge (to the full-rate bank) and
+    back the block after; ``counts`` tallies them."""
+
+    def __init__(self, rt, handles):
+        self.rt, self.handles = rt, handles
+        self.counts = {"retunes": 0, "migrations": 0, "full_rate_blocks": 0,
+                       "dragged": None}
+
+    def __call__(self, i):
+        churn, handles = self.counts, self.handles
+        if churn["dragged"] is not None:       # back from the edge
+            h = churn["dragged"]
+            h.set_offset(cfg6_dial(i))
+            check(h.bucket_key == "pfbi:ssb", f"cfg6: block {i}: the dragged dial "
+                  f"is in {h.bucket_key}, not back in pfbi:ssb")
+            churn["dragged"] = None
+        for j in range(4):
+            h = handles[(i * 4 + j) % len(handles)]
+            h.set_offset(cfg6_dial(i * 4 + j))
+            churn["retunes"] += 1
+        if i % 8 == 4:
+            h = handles[(i * 13) % len(handles)]
+            h.set_offset(CFG6_EDGE)
+            check(h.bucket_key == "ssb", f"cfg6: block {i}: the edge dial is in "
+                  f"{h.bucket_key}, not served full rate")
+            churn["dragged"] = h
+            churn["migrations"] += 1
+        churn["full_rate_blocks"] += int(self.rt.banks["ssb"].n_active > 0)
+
+
+# -- phase 5: every path at full width, its eager step against its graph -----
+def pendings_in(obj):
+    """Every Pending in a dispatch's return (tuples, lists, dicts)."""
+    from openwebrx_tpu_torch.runtime.chain import Pending
+    if isinstance(obj, Pending):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from pendings_in(o)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            yield from pendings_in(o)
+
+
+def steps_of(*objs):
+    """The block steps (``GraphStep``) of banks, programs and runtimes."""
+    out = []
+    for o in objs:
+        if hasattr(o, "banks"):            # a DeviceRuntime
+            out += steps_of(*o.banks.values(), o.fft_program)
+        elif hasattr(o, "step"):
+            out.append(o.step)
+        else:
+            out.append(o.program.step)
+    return out
+
+
+def host_split():
+    return dict.fromkeys(("churn", "dispatch", "wait", "deliver"), 0.0)
+
+
+def same_tree(a, b) -> bool:
+    """Two trees of numpy arrays (and bytes) bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    if isinstance(a, bytes):
+        return a == b
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+class PipeSide:
+    """One side of a path fed device blocks: ``dispatch(x)`` returns what
+    ``fetch(*it)`` takes; a block is dispatched before the one before it is
+    fetched.  ``blocks`` counts the blocks run so far.  Host time:
+    dispatch, the wait for the block's copies (its events), deliver (the
+    fetch to numpy)."""
+
+    def __init__(self, xs, dispatch, fetch, objs):
+        self.xs, self.dispatch, self.fetch, self.objs = xs, dispatch, fetch, objs
+        self.results, self.blocks = [], 0
+
+    def run(self, n, spent):
+        pending = None
+        for x in self.xs[self.blocks:self.blocks + n]:
+            t0 = time.perf_counter()
+            nxt = self.dispatch(x)
+            spent["dispatch"] += time.perf_counter() - t0
+            if pending is not None:
+                self._fetch(pending, spent)
+            pending = nxt
+        self._fetch(pending, spent)
+        self.blocks += n
+        return n
+
+    def _fetch(self, pending, spent):
+        t0 = time.perf_counter()
+        for p in pendings_in(pending):
+            if p.event is not None:
+                p.event.synchronize()
+        t1 = time.perf_counter()
+        self.results.append(self.fetch(*pending))
+        spent["wait"] += t1 - t0
+        spent["deliver"] += time.perf_counter() - t1
+
+
+class BatchSide(PipeSide):
+    """Config #4's side: blocks dispatched without a fetch, a batch of
+    CFG4_BATCH started behind one event and fetched after the next batch
+    was joined."""
+
+    def __init__(self, xs, prog):
+        super().__init__(xs, None, None, [prog])
+        self.prog = prog
+
+    def run(self, n, spent):
+        check(n % CFG4_BATCH == 0, f"cfg4: {n} blocks are not whole batches")
+        batch, joined = [], []
+        for x in self.xs[self.blocks:self.blocks + n]:
+            t0 = time.perf_counter()
+            batch.append(self.prog.dispatch_quiet(x))
+            if len(batch) == CFG4_BATCH:
+                joined.append(self.prog.join_pending(batch))
+                batch = []
+            spent["dispatch"] += time.perf_counter() - t0
+            if len(joined) >= 2:
+                self._batch(joined.pop(0), spent)
+        while joined:
+            self._batch(joined.pop(0), spent)
+        self.blocks += n
+        return n
+
+    def _batch(self, joined, spent):
+        t0 = time.perf_counter()
+        for p in pendings_in(joined):
+            if p.event is not None:
+                p.event.synchronize()
+        t1 = time.perf_counter()
+        self.results += self.prog.fetch_many(*joined)
+        spent["wait"] += t1 - t0
+        spent["deliver"] += time.perf_counter() - t1
+
+
+class RuntimeSide:
+    """One side of a DeviceRuntime path: ``n`` blocks of its source
+    through the runtime's own pipeline (dispatch, complete the oldest once
+    ``pipeline_depth`` are in flight), ``churn(i)`` before block i, all in
+    flight completed at the end of a run; ``results`` are the callbacks'
+    deliveries.  The host clock splits a block into the churn, dispatch
+    (upload, parameters, launches), the wait for its copies and delivery
+    (numpy, framing, callbacks)."""
+
+    def __init__(self, rt, src, results, churn=None):
+        self.rt, self.src, self.results, self.churn = rt, src, results, churn
+        self.objs, self.blocks, self.spent = [rt], 0, host_split()
         src.start()
-        for _ in range(n_warm):
-            rt._pump(src.read_block(), pending)
-        while pending:
-            rt._complete_block(pending.popleft())
-        spent = {"churn": 0.0, "dispatch": 0.0, "wait": 0.0, "deliver": 0.0}
         dispatch, complete = rt._dispatch_block, rt._complete_block
 
         def timed_dispatch(block):
             t0 = time.perf_counter()
             out = dispatch(block)
-            spent["dispatch"] += time.perf_counter() - t0
+            self.spent["dispatch"] += time.perf_counter() - t0
             return out
 
         def timed_complete(pend):
             t0 = time.perf_counter()
-            for p in [*pend["fft_pending"], *(q for ps in pend["bank_pending"].values()
-                                                for q in ps)][:1]:
-                if p.event is not None:      # one event for all of them
+            for p in pendings_in([pend["fft_pending"], pend["bank_pending"]]):
+                if p.event is not None:
                     p.event.synchronize()
             t1 = time.perf_counter()
             complete(pend)
-            spent["wait"] += t1 - t0
-            spent["deliver"] += time.perf_counter() - t1
+            self.spent["wait"] += t1 - t0
+            self.spent["deliver"] += time.perf_counter() - t1
 
         rt._dispatch_block, rt._complete_block = timed_dispatch, timed_complete
+
+    def run(self, n, spent):
+        from collections import deque
+        self.spent, pending = spent, deque()
+        for _ in range(n):
+            if self.churn is not None:
+                t0 = time.perf_counter()
+                self.churn(self.blocks)
+                spent["churn"] += time.perf_counter() - t0
+            self.blocks += 1
+            self.rt._pump(self.src.read_block(), pending)
+        while pending:
+            self.rt._complete_block(pending.popleft())
+        return n
+
+
+class ThreadedSide(RuntimeSide):
+    """The threaded path's side: the runtime's own loop thread started,
+    stopped once ``n`` more blocks went through it (a block or two more
+    may finish while it stops)."""
+
+    built_at = None          # when the first start() had built the kernels
+
+    def run(self, n, spent):
+        self.spent = spent
+        b0 = self.rt.gauges["blocks"]
+        deadline = time.perf_counter() + RT_DEADLINE_S
+        self.rt.start()
+        if self.built_at is None:
+            self.built_at = self.rt.kernels_built_at
+        try:
+            while self.rt.gauges["blocks"] < b0 + n:
+                check(time.perf_counter() < deadline, "threaded: the loop stalled")
+                time.sleep(0.001)
+        finally:
+            self.rt.stop()
+        ran = self.rt.gauges["blocks"] - b0
+        self.blocks += ran
+        return ran
+
+
+def each_block(**per_block):
+    """``expect`` of a path whose every block launches ``per_block``: a
+    side → the launches of the blocks it ran."""
+    want = launches_per_block(**per_block)
+    return lambda side: {k: v * side.blocks for k, v in want.items()}
+
+
+def traced_blocks(events, gap_ms=SRV_BLOCK_GAP_MS) -> list:
+    """The hand-written kernels of a trace of the server's loop, grouped
+    into its blocks (a kernel more than ``gap_ms`` after the one before it
+    begins a block), the first and the last dropped (the trace may have
+    cut them) → each whole block's launches by source file."""
+    from torch_graph_scenes import KERNEL_MARKS
+    ours = sorted((float(e["ts"]), src) for e in events
+                  for src, mark in KERNEL_MARKS.items() if mark in e.get("name", ""))
+    blocks, last = [], None
+    for ts, src in ours:
+        if last is None or ts - last > gap_ms * 1e3:       # trace times are µs
+            blocks.append(dict.fromkeys(KERNEL_MARKS, 0))
+        blocks[-1][src] += 1
+        last = ts
+    return blocks[1:-1]
+
+
+def check_traced_blocks(label, events):
+    """At least two whole blocks in a trace of the server's loop, each
+    with the hand-written launches of SRV_LAUNCHES_PER_BLOCK → them."""
+    whole = traced_blocks(events)
+    check(len(whole) >= 2 and all(b == SRV_LAUNCHES_PER_BLOCK for b in whole),
+          f"{label}: the trace's whole blocks ran the hand-written kernels {whole}, "
+          f"expected {SRV_LAUNCHES_PER_BLOCK} each")
+    return whole
+
+
+def busy_ms(events) -> float:
+    """The union of the kernels' intervals (ms)."""
+    busy_us, end = 0.0, -np.inf
+    for ts, dur in sorted((float(e["ts"]), float(e.get("dur", 0))) for e in events):
+        busy_us += max(0.0, ts + dur - max(ts, end))
+        end = max(end, ts + dur)
+    return busy_us / 1e3
+
+
+def profile_side(torch, label, side, n, expect) -> dict:
+    """``n`` blocks of a side under torch.profiler, every kernel count set
+    to 0 just before: the trace must hold each hand-written kernel exactly
+    as often as the counts say and ``expect`` predicts, which holds the
+    counts a replay adds to the kernels that ran.  → kernel events a block
+    (all, and the hand-written ones), the device's busy time (the union of
+    the kernels) and its idle share of the profiled wall (which the
+    profiler's own host cost stretches)."""
+    from torch_graph_scenes import launch_counts, traced, zero_launches
+    want0 = expect(side)
+    zero_launches()
+
+    def run():
+        t0 = time.perf_counter()
+        ran = side.run(n, host_split())
+        torch.cuda.synchronize()
+        return ran, (time.perf_counter() - t0) * 1e3
+    (ran, wall_ms), events, ours = traced(run)
+    counted = launch_counts()
+    want = {k: v - want0[k] for k, v in expect(side).items()}
+    check(ours == counted == want, f"{label}: the trace of {ran} blocks holds the "
+          f"hand-written kernels {ours}, the counts say {counted}, expected {want}")
+    busy = busy_ms(events)
+    return {"blocks": ran, "kernel_events_per_block": len(events) / ran,
+            "hand_written": ours, "busy_ms_per_block": busy / ran,
+            "wall_ms_per_block": wall_ms / ran, "idle_share": 1.0 - busy / wall_ms}
+
+
+def replay_ms(torch, step, iters=ALT_DEVICE_REPLAYS) -> float:
+    """The device time of one replay of a step's graph: ``iters`` replays
+    queued back to back between two CUDA events (the host keeps ahead, so
+    this is the device's time for the block's work alone)."""
+    graph = step._graph
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def output_clone_cost(torch, smi, step, iters=50) -> dict:
+    """What a dispatch that hands its outputs out without fetching them
+    (``to_host=False``) adds to a replay: a device copy of every output,
+    host ms a dispatch and device ms (CUDA events, queued back to back)."""
+    from openwebrx_tpu_torch.runtime.chain import tree_leaves
+    outs = [t for t in tree_leaves(step._out) if torch.is_tensor(t)]
+
+    def clone_all():
+        return [t.clone() for t in outs]
+    clone_all()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        clone_all()
+    end.record()
+    host_ms = (time.perf_counter() - t0) / iters * 1e3
+    end.synchronize()
+    rec = {"outputs": len(outs), "bytes": sum(t.numel() * t.element_size() for t in outs),
+           "host_ms": host_ms, "device_ms": start.elapsed_time(end) / iters}
+    log(f"[usb] {smi}: a dispatch without a fetch copies the replay's {rec['outputs']} "
+        f"outputs ({rec['bytes']} bytes): host {host_ms:.4f} ms, device "
+        f"{rec['device_ms']:.4f} ms")
+    return rec
+
+
+def params_copy_cost(torch, smi, bank, iters=20) -> dict:
+    """What a control change costs config #6's interactive bank at its
+    next dispatch: the params rebuilt from the controls and uploaded
+    (``_params``), then copied into the graph's static params
+    (``set_params``); host ms of each, device ms of the copy (CUDA
+    events).  A squelch set to its own level marks the params changed as
+    a retune does; the rebuild is the same whichever control moved."""
+    from openwebrx_tpu_torch.runtime.chain import tree_leaves
+    slot = int(np.flatnonzero(bank._active)[0])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    build = copy = device = 0.0
+    for _ in range(iters):
+        bank.set_squelch(slot, float(bank._squelch[slot]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = bank._params()
+        t1 = time.perf_counter()
+        start.record()
+        bank.step.set_params(params)
+        end.record()
+        t2 = time.perf_counter()
+        end.synchronize()
+        build, copy = build + t1 - t0, copy + t2 - t1
+        device += start.elapsed_time(end)
+    leaves = [t for t in tree_leaves(params) if torch.is_tensor(t)]
+    rec = {"leaves": len(leaves), "bytes": sum(t.numel() * t.element_size() for t in leaves),
+           "build_host_ms": build / iters * 1e3, "copy_host_ms": copy / iters * 1e3,
+           "copy_device_ms": device / iters}
+    log(f"[cfg6] {smi}: a control change before a block: params rebuilt and uploaded "
+        f"{rec['build_host_ms']:.4f} ms of host, copied into the graph's "
+        f"{rec['leaves']} static tensors ({rec['bytes']} bytes) {rec['copy_host_ms']:.4f} "
+        f"ms of host, {rec['copy_device_ms']:.4f} ms of device")
+    return rec
+
+
+def alternate(torch, dev, smi, label, sides, expect, warm=ALT_WARM, n=ALT_BLOCKS,
+              order=ALT_ORDER, compare=None, profiled=ALT_PROFILE_BLOCKS,
+              step_blocks=None) -> dict:
+    """Phase 5 on one path: ``sides`` {False: the eager step, True: the
+    graph} over the same block sequence.  ``warm`` blocks each (the graph
+    side captures there); rounds of ``n`` blocks in ``order``, each with
+    every kernel count set to 0 just before and read just after and held
+    to ``expect`` (a side → the launches its blocks so far should have
+    made); the sides' results bit for bit (``compare``, by default every
+    block); ``profiled`` more blocks each under torch.profiler
+    (``profile_side``: the trace holds the counts to the kernels that
+    ran); the eager side captured nothing and each graph was captured once
+    and replayed on every later block (``step_blocks``: the graph side →
+    (step, blocks it ran) pairs; by default every step on every block);
+    the device time of the replays a block.  → the path's record;
+    ``launches`` sums the graph side's rounds, the main path's run."""
+    from torch_graph_scenes import launch_counts, zero_launches
+    t_path = time.perf_counter()
+    for side in sides.values():
+        side.run(warm, host_split())
+    rec = {("graph" if g else "eager"): {"ms_per_block": [], "rounds": [], "blocks": 0,
+                                         "host_ms": host_split(), "launches": {},
+                                         "peak_mib": []}
+           for g in sides}
+    replays0 = {id(st): st.replays for st in steps_of(*sides[True].objs)}
+    for graph in order:
+        side, r = sides[graph], rec["graph" if graph else "eager"]
+        want0 = expect(side)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        for k in kernels.ALL:
-            k.launches = 0
-        t_start = time.perf_counter()
-        for i in range(n_timed):
-            if before_block is not None:
-                t0 = time.perf_counter()
-                before_block(i)
-                spent["churn"] += time.perf_counter() - t0
-            rt._pump(src.read_block(), pending)
-        while pending:
-            rt._complete_block(pending.popleft())
+        zero_launches()
+        spent = host_split()
+        t0 = time.perf_counter()
+        ran = side.run(n, spent)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t_start
-        del rt._dispatch_block, rt._complete_block
-        launches = {k.source.name: k.launches for k in kernels.ALL}
-        parts = {k: v / n_timed * 1e3 for k, v in spent.items()}
-        log(f"[{label}] launches: {launches} ({n_timed} blocks, pipeline depth "
-            f"{rt.pipeline_depth}); per block: " + ", ".join(
-                f"{k} {v / n_timed:g}" for k, v in launches.items()))
-        log(f"[{label}] {smi}: host ms a block: " + ", ".join(
-            f"{k} {v:.3f}" for k, v in parts.items()))
-        errors.check(label)
-        return wall, launches, torch.cuda.max_memory_allocated(dev) / 2 ** 20, parts
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        want = {k: v - want0[k] for k, v in expect(side).items()}
+        check(got == want, f"{label} ({'graph' if graph else 'eager'}): launches {got} "
+              f"in a round of {ran} blocks, expected {want}")
+        r["ms_per_block"].append(wall / ran * 1e3)
+        r["rounds"].append({k: v / ran * 1e3 for k, v in spent.items()})
+        r["blocks"] += ran
+        for k, v in spent.items():
+            r["host_ms"][k] += v * 1e3
+        for k, v in got.items():
+            r["launches"][k] = r["launches"].get(k, 0) + v
+        r["peak_mib"].append(torch.cuda.max_memory_allocated(dev) / 2 ** 20)
+    for r in rec.values():
+        r["host_ms"] = {k: v / r["blocks"] for k, v in r["host_ms"].items()}
+        r["launches_per_block"] = {k: v / r["blocks"] for k, v in r["launches"].items()}
+    replays = {id(st): st.replays - replays0[id(st)] for st in steps_of(*sides[True].objs)
+               if id(st) in replays0}
+    same = (compare or (lambda a, b: [same_tree(x, y) for x, y in zip(a, b)]))(
+        sides[False].results, sides[True].results)
+    check(len(same) > 0 and all(same), f"{label}: the graph's results differ from the "
+          f"eager step's at {[i for i, s in enumerate(same) if not s]} of {len(same)}")
+    for graph, side in sides.items():
+        rec["graph" if graph else "eager"]["profile"] = profile_side(
+            torch, label, side, profiled, expect)
+    eager_captures = [st.captures for st in steps_of(*sides[False].objs)]
+    check(not any(eager_captures), f"{label}: the eager side captured {eager_captures}")
+    pairs = (step_blocks or (lambda s: [(st, s.blocks) for st in steps_of(*s.objs)]))(
+        sides[True])
+    got = [(st.captures, st.replays) for st, _ in pairs]
+    log(f"[{label}] graph captures and replays by step: {got} (blocks "
+        f"{[b for _, b in pairs]})")
+    check(all((st.captures, st.replays) == (1, b - 1) for st, b in pairs),
+          f"{label}: captures and replays {got}, expected one capture and a replay on "
+          f"every block after the first of {[b for _, b in pairs]}")
+    # the device's own time a block: each graph's replays back to back,
+    # weighted by its replays a block in the rounds (this replays the
+    # graphs on their last state: the paths end here)
+    steps = [st for st in steps_of(*sides[True].objs)
+             if st._graph is not None and replays.get(id(st))]
+    blocks = rec["graph"]["blocks"]
+    device_ms = sum(replay_ms(torch, st) * replays[id(st)] / blocks for st in steps)
+    rec["graph"]["captures"] = [{"captures": st.captures, "capture_ms": st.capture_ms,
+                                 "pool_mib": st.pool_mib} for st in steps]
+    rec["device_ms_per_block"] = device_ms
+    for r in (rec["eager"], rec["graph"]):
+        r["idle_share"] = 1.0 - device_ms / float(np.mean(r["ms_per_block"]))
+    rec["identical"] = f"{sum(same)}/{len(same)}"
+    rec["launches"] = rec["graph"]["launches"]
+    e, g = rec["eager"], rec["graph"]
+    fmt = lambda v: "[" + ", ".join(f"{x:.3f}" for x in v) + "]"
+    log(f"[{label}] {smi}: ms/block eager {fmt(e['ms_per_block'])} graph "
+        f"{fmt(g['ms_per_block'])} (rounds {''.join('G' if x else 'E' for x in order)} "
+        f"of {n}); host ms a block eager " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                                         e["host_ms"].items())
+        + "; graph " + ", ".join(f"{k} {v:.3f}" for k, v in g["host_ms"].items())
+        + f"; dispatch by round eager {fmt([x['dispatch'] for x in e['rounds']])} graph "
+        f"{fmt([x['dispatch'] for x in g['rounds']])}")
+    log(f"[{label}] launches a block {g['launches_per_block']} (both sides, every round "
+        f"as predicted); the trace of {e['profile']['blocks']} blocks a side holds the "
+        f"hand-written kernels as the counts say: eager {e['profile']['hand_written']} "
+        f"graph {g['profile']['hand_written']}; profiler kernel events a block eager "
+        f"{e['profile']['kernel_events_per_block']:.1f} graph "
+        f"{g['profile']['kernel_events_per_block']:.1f}; idle share (profiler) eager "
+        f"{e['profile']['idle_share']:.4f} graph {g['profile']['idle_share']:.4f}")
+    log(f"[{label}] device ms a block (replays back to back) {device_ms:.4f}; idle "
+        f"share eager {e['idle_share']:.4f} graph {g['idle_share']:.4f}; captures "
+        + "; ".join(f"{c['captures']} in {c['capture_ms']:.1f} ms, pool {c['pool_mib']:.1f} MiB"
+                    for c in g["captures"])
+        + f"; peak MiB eager {max(e['peak_mib']):.1f} graph {max(g['peak_mib']):.1f}; "
+        f"identical blocks {rec['identical']}; {time.perf_counter() - t_path:.1f} s")
+    return rec
+
+
+def path_report(label, smi, rec, block, fs) -> dict:
+    """A path's rate from its graph side's rounds (every result fetched)."""
+    g = rec["graph"]
+    ms = float(np.mean(g["ms_per_block"]))
+    msps = block / ms / 1e3
+    log(f"[{label}] {smi}: {g['blocks']} blocks of {block} samples in the graph's "
+        f"rounds (results fetched to host every block): {ms:.3f} ms/block, {msps:.3f} "
+        f"MS/s = {msps / (fs / 1e6):.3f}x real time; peak device memory "
+        f"{max(g['peak_mib']):.1f} MiB")
+    return {"ms_per_block": ms, "msps": msps, "realtime_x": msps / (fs / 1e6),
+            "peak_mib": max(g["peak_mib"]), "host_ms": g["host_ms"]}
+
+
+def cfg4_fanout():
+    """Config #4's Fanout: BPSK31 ×16 and USB audio ×16 → (psk, audio,
+    fanout)."""
+    from openwebrx_tpu_torch.models.receiver import ClientDemodulatorChain
+    from openwebrx_tpu_torch.models.secondary import PskChain
+    from openwebrx_tpu_torch.runtime.chain import Fanout
+    psk = PskChain(CFG2_FS, baud=31.25)
+    psk.selector.shift.set_rate(
+        -(np.arange(CFG4_CHANNELS, dtype=np.float32) * 5e3 + 50e3) / CFG2_FS)
+    aud = ClientDemodulatorChain(CFG2_FS, 12000.0, "usb", "none")
+    aud.selector.shift.set_rate(
+        -(np.arange(CFG4_CHANNELS, dtype=np.float32) * 5e3 + 60e3) / CFG2_FS)
+    return psk, aud, Fanout([("psk", psk), ("audio", aud)], batch_shapes={
+        "psk": (CFG4_CHANNELS,), "audio": (CFG4_CHANNELS,)})
+
+
+def full_width_paths(torch, dev, smi, paths, launches_by_path, alt):
+    """Phase 5: every path at full width, its eager step against its graph
+    (``alternate``), on blocks of a generator of its own; the graph side's
+    results held to the path's own checks (tone SNR, shapes).  Adds each
+    path's report to ``paths``, the graph side's launches to
+    ``launches_by_path`` and the alternation to ``alt``."""
+    from openwebrx_tpu_torch.models.receiver import (MODE_BANDPASS, ClientDemodulatorChain,
+                                                     FftChain)
+    from openwebrx_tpu_torch.models.stages import block_requirement, plan_block_size
+    from openwebrx_tpu_torch.ops import adpcm
+    from openwebrx_tpu_torch.ops.formats import Format, StreamSpec
+    from openwebrx_tpu_torch.runtime import device as rtdev
+    from openwebrx_tpu_torch.runtime.bank import ChannelBank
+    from openwebrx_tpu_torch.runtime.chain import Program
+    from openwebrx_tpu_torch.runtime.channelized import ChannelizedBank
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    total = ALT_WARM + len(ALT_ORDER) // 2 * ALT_BLOCKS + ALT_PROFILE_BLOCKS
+    spec5 = StreamSpec(Format.COMPLEX_FLOAT, FS)
+    spec24 = StreamSpec(Format.COMPLEX_FLOAT, CFG2_FS)
+
+    def run(label, sides, expect, block, fs, **kw):
+        rec = alternate(torch, dev, smi, label, sides, expect, **kw)
+        alt[label] = rec
+        launches_by_path[label] = rec["launches"]
+        paths[label] = path_report(label, smi, rec, block, fs)
+        return sides[True].results
+
+    def full_bank(mode, m, rate, graph):
+        bank = ChannelizedBank(FS, m, mode=mode, audio_rate=rate, compression="adpcm",
+                               target_seconds=0.05, device=dev, graph=graph)
+        for i in range(m):
+            bank.assign(float((i - m // 2) * FS / m))
+        return bank
+
+    # config #5's banks, every channel assigned
+    for label, mode, m, rate, per_block in (
+            ("usb", "usb", 1024, 12000.0, dict(fold=1, adpcm_=1, agc_=1, squelch_=1)),
+            ("nfm", "nfm", 1024, 12000.0, dict(fold=1, adpcm_=1, iir_=1, agc_=1, squelch_=1)),
+            ("am", "am", 2048, 12000.0, dict(fold=1, adpcm_=1, iir_=1, agc_=1, squelch_=1)),
+            ("wfm", "wfm", 128, 48000.0, dict(fold=1, adpcm_=1, iir_=1, squelch_=1))):
+        banks = {g: full_bank(mode, m, rate, g) for g in (False, True)}
+        bank = banks[True]
+        carriers = [float((i * m // M - m // 2) * FS / m) for i in TONE_CHANNELS]
+        tone_slots = [bank.channel_for(f)[0] for f in carriers]   # dense: slot k
+        blocks = seeded_blocks(torch, gen, dev, FS, bank.block, total, carriers, mode)
+        results = run(label, {g: PipeSide(blocks, b.dispatch, b.fetch, [b])
+                              for g, b in banks.items()},
+                      each_block(**per_block), bank.block, FS)
+        if label == "usb":
+            alt[label]["output_clone"] = output_clone_cost(torch, smi, bank.step)
+        out_bytes = bank.channel_block * int(rate) // int(bank.channel_rate) // 2
+        sq_stage = bank.chain.selector.squelch
+        windows = sq_stage.block // sq_stage.window
+        for y, aux in results:
+            data, strides = y
+            pdb = aux["selector.squelch.power_db"]
+            check(data.shape == (m, out_bytes) and data.dtype == np.uint8,
+                  f"{label}: bytes {data.shape} {data.dtype}")
+            check(strides.shape == (m, out_bytes // adpcm.STATE_STRIDE)
+                  and strides.dtype == np.int32, f"{label}: stride {strides.shape}")
+            check(pdb.shape == (m, windows) and pdb.dtype == np.float32
+                  and np.isfinite(pdb).all(), f"{label}: power_db {pdb.shape}")
+            if mode == "wfm":
+                rds = aux["wfm.rds_tap.rds"]
+                check(rds.shape == (m, bank.channel_block * 250 // 384 // 16)
+                      and rds.dtype == np.complex64 and np.isfinite(rds).all(),
+                      f"wfm: rds aux {rds.shape} {rds.dtype}")
+        for k in tone_slots:
+            audio_k = decode_channel([(y[0][k], y[1][k]) for y, _ in results], adpcm)
+            settled = audio_k[len(audio_k) // 2:].astype(np.float32) / 32767
+            snr = tone_snr(settled, TONE_AUDIO_HZ, rate)
+            log(f"[{label}] slot {k}: {mode} tone SNR {snr:.1f} dB "
+                f"(minimum {TONE_SNR_MIN_DB})")
+            check(snr > TONE_SNR_MIN_DB, f"{label}: channel {k} tone SNR {snr:.1f} dB")
+        quiet = decode_channel([(y[0][5], y[1][5]) for y, _ in results], adpcm)
+        check(np.isfinite(quiet).all(), f"{label}: quiet channel audio")
+        del banks, bank, blocks, results
+        torch.cuda.empty_cache()
+
+    # BASELINE config #1: 2.4 MS/s → NFM → 12 kHz ADPCM through Program
+    def cfg1(graph):
+        chain = ClientDemodulatorChain(CFG1_FS, mode="nfm", compression="adpcm")
+        chain.set_frequency_offset(CFG1_OFFSET)
+        spec = StreamSpec(Format.COMPLEX_FLOAT, CFG1_FS)
+        return Program(chain, spec, plan_block_size(chain, spec, 0.1), device=dev, graph=graph)
+    progs = {g: cfg1(g) for g in (False, True)}
+    prog = progs[True]
+    blocks = seeded_blocks(torch, gen, dev, CFG1_FS, prog.block, total,
+                           [CFG1_OFFSET], "nfm", noise=0.05)
+    results = run("cfg1", {g: PipeSide(blocks, p.dispatch, p.fetch, [p])
+                           for g, p in progs.items()},
+                  each_block(adpcm_=1, iir_=1, agc_=1, squelch_=1), prog.block, CFG1_FS)
+    for y, aux in results:
+        data, strides = y
+        check(data.shape == (prog.out_block,) and data.dtype == np.uint8,
+              f"cfg1: bytes {data.shape} {data.dtype}")
+        check(strides.shape == (prog.out_block // adpcm.STATE_STRIDE,)
+              and strides.dtype == np.int32, f"cfg1: stride {strides.shape}")
+        pdb = aux["selector.squelch.power_db"]
+        check(pdb.dtype == np.float32 and np.isfinite(pdb).all(), "cfg1: power_db")
+    audio1 = decode_channel([y for y, _ in results], adpcm)
+    snr = tone_snr(audio1[len(audio1) // 2:].astype(np.float32) / 32767,
+                   TONE_AUDIO_HZ, 12000.0)
+    log(f"[cfg1] NFM tone at {CFG1_OFFSET:.0f} Hz: SNR {snr:.1f} dB "
+        f"(minimum {TONE_SNR_MIN_DB})")
+    check(snr > TONE_SNR_MIN_DB, f"cfg1: tone SNR {snr:.1f} dB")
+    del progs, prog, blocks, results
+
+    # BASELINE config #2: a 4096-bin compressed waterfall, one USB listener
+    # on a 64-channel PFB bank and one edge dial on a full-rate ChannelBank,
+    # all fed from one device-resident block per step
+    def cfg2(graph):
+        lbank = ChannelizedBank(CFG2_FS, 64, mode="usb", compression="adpcm",
+                                target_seconds=0.04, device=dev, graph=graph)
+        ebank = ChannelBank(CFG2_FS, "usb", capacity=16, block=lbank.block, device=dev,
+                            graph=graph)
+        check(lbank.block == 120000 and ebank.chunk_ratio == 1
+              and not lbank.fits(CFG2_EDGE, *MODE_BANDPASS["usb"]),
+              f"config #2 plan: block {lbank.block}, chunk ratio {ebank.chunk_ratio}")
+        slots = (lbank.assign(CFG2_LISTENER), ebank.add_channel(CFG2_EDGE))
+        wf = Program(FftChain(WF_SIZE, 20.0, compress=True), spec24, lbank.block,
+                     device=dev, graph=graph)
+
+        def dispatch(x):
+            return wf.dispatch(x), lbank.dispatch(x), ebank.feed_dispatch(x)
+
+        def fetch(w, lb, eb):
+            return wf.fetch(*w), lbank.fetch(*lb), ebank.program.fetch(*eb)
+        return PipeSide(blocks, dispatch, fetch, [wf, lbank, ebank]), wf, slots
+    blocks = seeded_blocks(torch, gen, dev, CFG2_FS, 120000, total,
+                           [CFG2_LISTENER, CFG2_EDGE], "usb", noise=0.05)
+    parts = {g: cfg2(g) for g in (False, True)}
+    _, wf2_prog, (lslot, eslot) = parts[True]
+    wf2 = wf2_prog.chain
+    nb = wf2.waterfall.wire_bytes_per_row
+    check((wf2.waterfall.rows, wf2.waterfall.averages, nb) == (1, 29, 2053),
+          f"config #2 waterfall plan {wf2.waterfall.rows} {wf2.waterfall.averages} {nb}")
+    results = run("cfg2", {g: p[0] for g, p in parts.items()},
+                  each_block(fold=1, adpcm_=2, agc_=2, squelch_=2, seq=1), 120000, CFG2_FS)
+    bins = {f: WF_SIZE // 2 + int(round((f + TONE_AUDIO_HZ) / CFG2_FS * WF_SIZE))
+            for f in (CFG2_LISTENER, CFG2_EDGE)}
+    for (raw, _), (ly, la), (ey, ea) in results:
+        check(raw.shape == (1, SEQ_ROW // 2) and raw.dtype == np.uint8,
+              f"cfg2: waterfall rows {raw.shape} {raw.dtype}")
+        check(ly[0].shape == (64, 300) and ey[0].shape == (16, 300)
+              and la["selector.squelch.power_db"].shape == (64, 1)
+              and ea["selector.squelch.power_db"].shape == (16, 1),
+              "cfg2: listener outputs")
+    row = decoded_row(results[-1][0][0][0], nb, adpcm)
+    for f, k in bins.items():
+        peak_bin = k - 4 + int(np.argmax(row[k - 4:k + 5]))
+        rise = row[peak_bin] - np.median(row)
+        log(f"[cfg2] waterfall: tone at {f + TONE_AUDIO_HZ:.0f} Hz peaks in bin "
+            f"{peak_bin} (expected {k} ± 1), {rise:.1f} dB above the median")
+        check(abs(peak_bin - k) <= 1 and rise > 20.0, f"cfg2: waterfall tone at {f}")
+    for label, bank_out, slot in (("listener", 1, lslot), ("edge", 2, eslot)):
+        audio = decode_channel([(r[bank_out][0][0][slot], r[bank_out][0][1][slot])
+                                for r in results], adpcm)
+        snr = tone_snr(audio[len(audio) // 2:].astype(np.float32) / 32767,
+                       TONE_AUDIO_HZ, 12000.0)
+        log(f"[cfg2] {label} slot {slot}: USB tone SNR {snr:.1f} dB (minimum "
+            f"{TONE_SNR_MIN_DB})")
+        check(snr > TONE_SNR_MIN_DB, f"cfg2: {label} tone SNR {snr:.1f} dB")
+    del parts, wf2_prog, blocks, results
+
+    # BASELINE config #4: BPSK31 ×16 and USB audio ×16 in one Fanout,
+    # delivered in 6-block batches; the first batch is checked against the
+    # same Fanout on the CPU
+    psk4, aud4, _ = cfg4_fanout()
+    ra, rb = block_requirement(psk4, spec24), block_requirement(aud4, spec24)
+    req = ra * rb // int(np.gcd(ra, rb))
+    block4 = (int(round(CFG2_FS * 0.1)) + req - 1) // req * req
+    check(block4 == 307200, f"config #4 block {block4}")
+    n4 = CFG4_BATCH + len(ALT_ORDER) // 2 * CFG4_BATCH + CFG4_BATCH
+    blocks = seeded_blocks(torch, gen, dev, CFG2_FS, block4, n4, [60e3], "usb")
+    progs = {g: Program(cfg4_fanout()[2], spec24, block4, device=dev, graph=g)
+             for g in (False, True)}
+    results4 = run("cfg4", {g: BatchSide(blocks, p) for g, p in progs.items()},
+                   each_block(agc_=1, squelch_=1), block4, CFG2_FS,
+                   warm=CFG4_BATCH, n=CFG4_BATCH, profiled=CFG4_BATCH)
+    symbols = 0
+    for y, aux in results4:
+        check(y["psk"].shape == (CFG4_CHANNELS, int(block4 * 31.25 / CFG2_FS))
+              and y["psk"].dtype == np.complex64
+              and y["audio"].shape == (CFG4_CHANNELS, 1536)
+              and y["audio"].dtype == np.int16
+              and aux["psk.secondary_fft.rows"].shape == (CFG4_CHANNELS, 1, 2048)
+              and aux["audio.selector.squelch.power_db"].shape == (CFG4_CHANNELS, 2),
+              f"cfg4: output shapes {y['psk'].shape} {y['audio'].shape}")
+        symbols += y["psk"].shape[-1]
+    check(len(results4) == n4 and symbols == n4 * 4,
+          f"cfg4: {len(results4)} results, {symbols} symbols a channel")
+    prog4_cpu = Program(cfg4_fanout()[2], spec24, block4, device="cpu")
+    psk_err, aud_err, pdb_err = 0.0, 0, 0.0
+    for x, (y, aux) in zip(blocks[:CFG4_BATCH], results4):
+        yc, ac = prog4_cpu.process(x.cpu())
+        psk_err = max(psk_err, float(np.abs(y["psk"] - yc["psk"]).max()
+                                     / np.abs(yc["psk"]).max()))
+        aud_err = max(aud_err, int(np.abs(y["audio"].astype(np.int32)
+                                          - yc["audio"].astype(np.int32)).max()))
+        key = "audio.selector.squelch.power_db"
+        pdb_err = max(pdb_err, float(np.abs(aux[key] - ac[key]).max()))
+    log(f"[cfg4] first batch card vs CPU: psk symbols max diff {psk_err:.2e} of "
+        f"max|y| (tolerance {CHAIN_RTOL}), audio {aud_err} LSB (tolerance "
+        f"{SMALL_BANK_LSB}), squelch power {pdb_err:.2e} dB; {symbols} symbols "
+        f"a channel over {n4} blocks")
+    check(psk_err <= CHAIN_RTOL and aud_err <= SMALL_BANK_LSB
+          and pdb_err <= SQUELCH_DB_TOL, "cfg4: card and CPU disagree")
+    audio4 = np.concatenate([y["audio"][0] for y, _ in results4])
+    snr = tone_snr(audio4[len(audio4) // 2:].astype(np.float32) / 32767,
+                   TONE_AUDIO_HZ, 12000.0)
+    log(f"[cfg4] audio channel 0: USB tone SNR {snr:.1f} dB (minimum {TONE_SNR_MIN_DB})")
+    check(snr > TONE_SNR_MIN_DB, f"cfg4: tone SNR {snr:.1f} dB")
+    del progs, prog4_cpu, blocks, results4
+
+    # the waterfall a config #5 device runs for its subscribers:
+    # FftChain(4096, 9) on the 49.152 MS/s block, 600 averaged frames a
+    # 0.05 s row; alone, then beside the 1024-channel USB bank
+    def wf5(graph):
+        return Program(FftChain(WF_SIZE, 9.0, compress=True), spec5, 2400 * M, device=dev,
+                       graph=graph)
+    progs = {g: wf5(g) for g in (False, True)}
+    wf5c = progs[True].chain
+    check((wf5c.waterfall.rows, wf5c.waterfall.averages) == (1, 600),
+          f"waterfall plan at 49.152 MS/s: {wf5c.waterfall.rows} rows of "
+          f"{wf5c.waterfall.averages}")
+    carriers = [float((i - M // 2) * FS / M) for i in TONE_CHANNELS]
+    blocks = seeded_blocks(torch, gen, dev, FS, 2400 * M, total, carriers, "usb")
+    results = run("wf", {g: PipeSide(blocks, p.dispatch, p.fetch, [p])
+                         for g, p in progs.items()}, each_block(seq=1), 2400 * M, FS)
+    # 600 averages leave a floor smooth to ±0.2 dB, so the codec's step is
+    # small when a tone's 37 dB peak arrives and the decoded peak comes out
+    # ~25 dB low and a bin late (the reference encoder does the same; the
+    # bytes are bit-identical to it): the tone must be there, ±1 bin
+    row = decoded_row(results[-1][0][0], wf5c.waterfall.wire_bytes_per_row, adpcm)
+    for f in carriers:
+        k = WF_SIZE // 2 + int(round((f + TONE_AUDIO_HZ) / FS * WF_SIZE))
+        peak_bin = k - 4 + int(np.argmax(row[k - 4:k + 5]))
+        rise = row[peak_bin] - np.median(row)
+        log(f"[wf] waterfall: tone at {f + TONE_AUDIO_HZ:.0f} Hz peaks in bin "
+            f"{peak_bin} (expected {k} ± 1), {rise:.1f} dB above the median "
+            f"after decoding")
+        check(abs(peak_bin - k) <= 1 and rise > 3.0,
+              f"wf: tone at {f} peaks in bin {peak_bin}, expected {k}")
+    both = {}
+    for g in (False, True):
+        w, b = wf5(g), full_bank("usb", M, 12000.0, g)
+        both[g] = PipeSide(blocks, lambda x, w=w, b=b: (w.dispatch(x), b.dispatch(x)),
+                           lambda wp, bp, w=w, b=b: (w.fetch(*wp), b.fetch(*bp)), [w, b])
+    ubank = both[True].objs[1]
+    results = run("usb+wf", both, each_block(fold=1, adpcm_=1, agc_=1, squelch_=1, seq=1),
+                  2400 * M, FS)
+    for k in [ubank.channel_for(f)[0] for f in carriers]:
+        audio = decode_channel([(r[1][0][0][k], r[1][0][1][k]) for r in results], adpcm)
+        snr = tone_snr(audio[len(audio) // 2:].astype(np.float32) / 32767,
+                       TONE_AUDIO_HZ, 12000.0)
+        check(snr > TONE_SNR_MIN_DB, f"usb+wf: channel {k} tone SNR {snr:.1f} dB")
+    log(f"[usb+wf] tones decoded in slots {[ubank.channel_for(f)[0] for f in carriers]}")
+    del progs, both, ubank, blocks, results
+    torch.cuda.empty_cache()
+
+    # configs #3 and #6 and the threaded loop through the port's
+    # DeviceRuntime on uint8 wire blocks at 8.192 MS/s (0.2 s blocks); the
+    # runtime's logger is watched for ERROR records
+    errors = ErrorRecords()
+    logging.getLogger(rtdev.__name__).addHandler(errors.handler)
+
+    def frames_same(a, b):
+        return [b"".join(a[i]) == b"".join(b[i]) for i in sorted(a)]
 
     def service_snr(chunks):
         pcm = np.frombuffer(b"".join(chunks), np.int16)
@@ -918,27 +1728,20 @@ def runtime_paths(torch, dev, smi, paths, launches_by_path):
 
     # config #3 (bench.py:347-402): 64 background USB dials on distinct
     # PFB channels, raw audio delivered in 6-block batches, depth 2
-    m3 = 256
-    dials3 = [pfb_dial((i * (m3 // 72) + 2) % m3, RT_FS, m3) for i in range(CFG3_DIALS)]
-    tone3 = (0, 21, 42, 63)
-    src3 = LoopSource("cfg3", RT_FS, [dials3[i] for i in tone3], seed=3)
-    rt3 = rtdev.DeviceRuntime(src3, target_seconds=0.1, service_delivery_seconds=0.6,
-                              pipeline_depth=2, device=dev)
-    check(rt3._pfb_channels() == m3 and rt3.block == 1638400,
-          f"config #3 plan: {rt3._pfb_channels()} channels, block {rt3.block}")
-    audio3 = {i: [] for i in range(CFG3_DIALS)}
-    for i, dial in enumerate(dials3):
-        h = rt3.open_channel("usb", dial, service=True)
-        h.audio_cb = lambda wire, hd=False, i=i: audio3[i].append(wire)
+    sides, made = {}, {}
+    for g in (False, True):
+        made[g] = cfg3_runtime(dev, graph=g)
+        rt, src, _, _, audio = made[g]
+        sides[g] = RuntimeSide(rt, src, audio)
+    rt3, _, dials3, tone3, audio3 = made[True]
     bank3 = rt3.banks["pfb:ssb"]
     check({h.bucket_key for h in rt3.handles} == {"pfb:ssb"} and bank3.n_active == 64
           and bank3.delivery_stride == 6 and bank3.chunk_ratio == 1,
           f"config #3: dials in {sorted({h.bucket_key for h in rt3.handles})}, "
           f"stride {bank3.delivery_stride}")
-    wall, launches, peak, parts = runtime_drive("cfg3", rt3, src3, CFG3_WARM, CFG3_TIMED)
-    launches_by_path["cfg3"] = launches
-    check_launches("cfg3", launches, {k: v * CFG3_TIMED for k, v in launches_per_block(
-        fold=1, agc_=1, squelch_=1).items()})
+    run("cfg3", sides, each_block(fold=1, agc_=1, squelch_=1), rt3.block, RT_FS,
+        compare=frames_same, step_blocks=lambda s: [(bank3.step, s.blocks)])
+    errors.check("cfg3")
     check(all(audio3.values()), "cfg3: audio missing on some dials")
     for i in tone3:
         snr = service_snr(audio3[i])
@@ -949,75 +1752,38 @@ def runtime_paths(torch, dev, smi, paths, launches_by_path):
     log(f"[cfg3] all {CFG3_DIALS} dials in pfb:ssb, audio on all; a quiet dial's "
         f"1 kHz SNR {quiet:.1f} dB")
     check(quiet < TONE_SNR_MIN_DB, f"cfg3: a tone leaks into dial 10 ({quiet:.1f} dB)")
-    paths["cfg3"] = dict(report("cfg3", smi, wall, CFG3_TIMED, rt3.block, RT_FS, peak),
-                         host_ms=parts)
-    del rt3, src3, bank3
+    del sides, made, rt3, bank3
 
     # config #6 (bench.py:498-583): 256 interactive listeners (ADPCM), four
     # retunes a block, every 8th block one listener dragged across a
-    # channel edge (served full rate for a block) and back; depth 3
-    def cfg6_runtime(label, seed):
-        src = LoopSource(label, RT_FS, [], seed=seed)
-        rt = rtdev.DeviceRuntime(src, target_seconds=0.1, capacity=16, pfb_capacity=256,
-                                 pipeline_depth=3, device=dev)
-        m = rt._pfb_m_for("ssb")
-        dials = [pfb_dial((i * (m // 256) + i // 128) % m, RT_FS, m)
-                 for i in range(CFG6_LISTENERS)]
-        src.dials = [dials[i] for i in CFG6_TONES]
-        frames = {i: [] for i in range(CFG6_LISTENERS)}
-        handles = []
-        for i, dial in enumerate(dials):
-            h = rt.open_channel("usb", dial)
-            h.audio_cb = lambda wire, hd=False, i=i: frames[i].append(wire)
-            handles.append(h)
-        check(m == 256 and {h.bucket_key for h in handles} == {"pfbi:ssb"},
-              f"{label}: {m} channels, listeners in {sorted({h.bucket_key for h in handles})}")
-        return rt, src, handles, frames
-
-    rt6, src6, handles6, frames6 = cfg6_runtime("cfg6", seed=6)
-    centers = np.fft.fftfreq(256, 1 / RT_FS)
-    edge = RT_FS / 256 * 1.5 - 200.0           # straddles a channel edge
-
-    def fitting_dial(j):
-        return float(centers[(j * 7 + 3) % 256] + 600.0)
-
-    handles6[0].set_offset(edge)               # the full-rate bank, built once
-    check(handles6[0].bucket_key == "ssb", "cfg6: the edge dial is not served full rate")
-    handles6[0].set_offset(fitting_dial(0))
-    check(handles6[0].bucket_key == "pfbi:ssb", "cfg6: the edge dial did not come back")
-    churn = {"retunes": 0, "migrations": 0, "full_rate_blocks": 0, "dragged": None}
-
-    def cfg6_churn(i):
-        if churn["dragged"] is not None:       # back from the edge
-            h = churn["dragged"]
-            h.set_offset(fitting_dial(i))
-            check(h.bucket_key == "pfbi:ssb", f"cfg6: block {i}: the dragged dial "
-                  f"is in {h.bucket_key}, not back in pfbi:ssb")
-            churn["dragged"] = None
-        for j in range(4):
-            h = handles6[(i * 4 + j) % len(handles6)]
-            h.set_offset(fitting_dial(i * 4 + j))
-            churn["retunes"] += 1
-        if i % 8 == 4:
-            h = handles6[(i * 13) % len(handles6)]
-            h.set_offset(edge)
-            check(h.bucket_key == "ssb", f"cfg6: block {i}: the edge dial is in "
-                  f"{h.bucket_key}, not served full rate")
-            churn["dragged"] = h
-            churn["migrations"] += 1
-        churn["full_rate_blocks"] += int(rt6.banks["ssb"].n_active > 0)
-
-    check(not any((i * 4 + j) % CFG6_LISTENERS in CFG6_TONES or (i * 13) % CFG6_LISTENERS
-                  in CFG6_TONES for i in range(CFG6_TIMED) for j in range(4)),
+    # channel edge (served full rate for a block) and back; depth 3.  Its
+    # warm-up runs two drags, so both banks have captured before round 1
+    cfg6_blocks = CFG6_WARM + len(CFG6_ORDER) // 2 * ALT_BLOCKS + ALT_PROFILE_BLOCKS
+    check(not any((i * 4 + j) % CFG6_LISTENERS in CFG6_TONES
+                  or (i % 8 == 4 and (i * 13) % CFG6_LISTENERS in CFG6_TONES)
+                  for i in range(cfg6_blocks) for j in range(4)),
           "cfg6: the churn would move a tone listener")
-    wall, launches, peak, parts = runtime_drive("cfg6", rt6, src6, CFG6_WARM,
-                                                CFG6_TIMED, cfg6_churn)
-    launches_by_path["cfg6"] = launches
+    sides = {}
+    for g in (False, True):
+        rt, src, handles, frames = cfg6_runtime(dev, "cfg6", seed=6, graph=g)
+        sides[g] = RuntimeSide(rt, src, frames, churn=Cfg6Churn(rt, handles))
+    rt6, frames6 = sides[True].rt, sides[True].results
+
+    def cfg6_expect(side):
+        full = side.churn.counts["full_rate_blocks"]
+        return launches_per_block(fold=side.blocks, adpcm_=side.blocks + full,
+                                  agc_=side.blocks + full, squelch_=side.blocks + full)
+
+    def cfg6_steps(side):
+        return [(side.rt.banks["pfbi:ssb"].step, side.blocks),
+                (side.rt.banks["ssb"].program.step, side.churn.counts["full_rate_blocks"])]
+    run("cfg6", sides, cfg6_expect, rt6.block, RT_FS, warm=CFG6_WARM, order=CFG6_ORDER,
+        compare=frames_same, step_blocks=cfg6_steps)
+    errors.check("cfg6")
+    churn = sides[True].churn.counts
     full = churn["full_rate_blocks"]
-    check(full == CFG6_TIMED // 8, f"cfg6: {full} blocks with a full-rate dial")
-    check_launches("cfg6", launches, {
-        "fold.cu": CFG6_TIMED, "adpcm.cu": CFG6_TIMED + full, "iir.cu": 0,
-        "agc.cu": CFG6_TIMED + full, "squelch.cu": CFG6_TIMED + full, "adpcm_seq.cu": 0})
+    check(full == sum(1 for i in range(cfg6_blocks) if i % 8 == 4),
+          f"cfg6: {full} blocks with a full-rate dial in {cfg6_blocks}")
     heard = sum(1 for f in frames6.values() if f)
     check(heard >= 250, f"cfg6: audio on {heard} of {CFG6_LISTENERS} listeners")
     for i in CFG6_TONES:
@@ -1030,57 +1796,51 @@ def runtime_paths(torch, dev, smi, paths, launches_by_path):
     log(f"[cfg6] {heard} of {CFG6_LISTENERS} listeners heard; {churn['retunes']} "
         f"retunes, {churn['migrations']} edge drags (pfbi:ssb -> ssb -> pfbi:ssb), "
         f"{full} blocks with the full-rate bank")
-    paths["cfg6"] = dict(report("cfg6", smi, wall, CFG6_TIMED, rt6.block, RT_FS, peak),
-                         retunes=churn["retunes"], edge_drags=churn["migrations"],
-                         host_ms=parts)
-    del rt6, src6, handles6, frames6
+    alt["cfg6"]["params_copy"] = params_copy_cost(torch, smi, rt6.banks["pfbi:ssb"])
+    paths["cfg6"].update(retunes=churn["retunes"], edge_drags=churn["migrations"])
+    del sides, rt6, frames6
 
     # the threaded run: config #6's listeners and a waterfall subscriber
-    # through start() and the loop thread, until audio and compressed rows
-    # arrived, then stop()
-    rtt, srct, handlest, framest = cfg6_runtime("threaded", seed=7)
-    rows_t = []
-    rtt.subscribe_waterfall(rows_t.append)
+    # through start() and the loop thread
+    sides, rows = {}, {}
+    for g in (False, True):
+        rt, src, _, frames = cfg6_runtime(dev, "threaded", seed=7, graph=g)
+        rows[g] = []
+        rt.subscribe_waterfall(rows[g].append)
+        sides[g] = ThreadedSide(rt, src, frames)
+    rtt, framest, rows_t = sides[True].rt, sides[True].results, rows[True]
     nb_row = rtt.fft_chain.waterfall.wire_bytes_per_row
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    for k in kernels.ALL:
-        k.launches = 0
-    t_start = time.perf_counter()
-    rtt.start()
-    t_loop = time.perf_counter()
-    deadline = t_loop + RT_DEADLINE_S
-    try:
-        while time.perf_counter() < deadline and not (
-                len(rows_t) >= RT_THREADED_ROWS
-                and all(len(framest[i]) >= RT_THREADED_FRAMES for i in CFG6_TONES)):
-            time.sleep(0.05)
-    finally:
-        rtt.stop()
-    wall = time.perf_counter() - t_loop
-    torch.cuda.synchronize()
-    check(rtt._thread is None and not rtt._running, "threaded: the loop did not stop")
-    launches = {k.source.name: k.launches for k in kernels.ALL}
-    blocks_t = rtt.gauges["blocks"]
-    built_first = (rtt.kernels_built_at is not None and rtt.first_block_at is not None
-                   and rtt.kernels_built_at <= rtt.first_block_at)
-    log(f"[threaded] launches: {launches} ({blocks_t} blocks); kernels.ALL built by "
-        f"start() before the first block: {built_first} (start took "
-        f"{(t_loop - t_start) * 1e3:.1f} ms); gauges {rtt.gauges}")
+
+    def prefix_same(a, b):
+        """The threaded loop may run a block more in a round on one side:
+        each listener's frames agree as far as both went."""
+        out = []
+        for i in sorted(a):
+            x, y = b"".join(a[i]), b"".join(b[i])
+            k = min(len(x), len(y))
+            out.append(k > 0 and x[:k] == y[:k])
+        return out
+    run("threaded", sides, each_block(fold=1, adpcm_=1, agc_=1, squelch_=1, seq=1),
+        rtt.block, RT_FS, compare=prefix_same,
+        step_blocks=lambda s: [(s.rt.banks["pfbi:ssb"].step, s.blocks),
+                               (s.rt.fft_program.step, s.blocks)])
     errors.check("threaded")
-    launches_by_path["threaded"] = launches
+    blocks_t = sides[True].blocks
+    built_at = sides[True].built_at
+    built_first = (built_at is not None and rtt.first_block_at is not None
+                   and built_at <= rtt.first_block_at)
+    log(f"[threaded] {blocks_t} blocks through the loop thread; kernels.ALL built by "
+        f"start() before the first block: {built_first}; gauges {rtt.gauges}")
     check(built_first, "threaded: kernels.ALL was not built before the first block")
-    check(blocks_t > 0 and len(rows_t) >= RT_THREADED_ROWS
+    check(len(rows_t) >= RT_THREADED_ROWS
           and all(len(framest[i]) >= RT_THREADED_FRAMES for i in CFG6_TONES),
           f"threaded: {blocks_t} blocks, {len(rows_t)} rows, audio frames "
-          f"{[len(framest[i]) for i in CFG6_TONES]} before the deadline")
-    check_launches("threaded", launches, {k: v * blocks_t for k, v in launches_per_block(
-        fold=1, adpcm_=1, agc_=1, squelch_=1, seq=1).items()})
+          f"{[len(framest[i]) for i in CFG6_TONES]}")
     check(all(len(r) == nb_row for r in rows_t) and len(rows_t) == 2 * blocks_t,
           f"threaded: waterfall rows of {sorted({len(r) for r in rows_t})} bytes "
           f"({len(rows_t)} for {blocks_t} blocks), expected {nb_row}")
     row = decoded_row(rows_t[-1], nb_row, adpcm)
-    for f in srct.dials:
+    for f in sides[True].src.dials:
         f_t = f + TONE_AUDIO_HZ
         k = WF_SIZE // 2 + int(round(f_t / RT_FS * WF_SIZE))
         peak_bin = k - 4 + int(np.argmax(row[k - 4:k + 5]))
@@ -1094,13 +1854,12 @@ def runtime_paths(torch, dev, smi, paths, launches_by_path):
         snr = tone_snr(pcm[len(pcm) // 2:].astype(np.float32) / 32767, TONE_AUDIO_HZ,
                        12000.0)
         check(snr > TONE_SNR_MIN_DB, f"threaded: listener {i} tone SNR {snr:.1f} dB")
-    paths["threaded"] = dict(
-        report("threaded", smi, wall, blocks_t, rtt.block, RT_FS,
-               torch.cuda.max_memory_allocated(dev) / 2 ** 20),
-        gauges=dict(rtt.gauges), kernels_built_before_first_block=built_first)
+    paths["threaded"].update(gauges=dict(rtt.gauges),
+                             kernels_built_before_first_block=built_first)
     logging.getLogger(rtdev.__name__).removeHandler(errors.handler)
-    del rtt, srct, handlest, framest
+    del sides, rows, rtt, framest, rows_t
     torch.cuda.empty_cache()
+    log(f"[paths] phase 5 took {time.perf_counter() - t_phase:.1f} s")
 
 
 class WsClient:
@@ -1499,7 +2258,8 @@ def log_split(smi, split, label):
     for lst in split["listeners"]:
         log(f"[split] {label}: {lst['mode']} -> {lst['bucket_key']}: open_channel "
             f"{lst['open_ms']:.1f} ms {json.dumps(lst['open_split'])}; first audio at block "
-            f"{lst['audio_block']}")
+            f"{lst['audio_block']}; graph captures by block (ms) "
+            f"{[round(v, 1) for v in lst.get('capture_ms', [])]}")
         for b, blk in enumerate(lst["blocks"]):
             top = sorted(blk["ops"].items(), key=lambda kv: -kv[1])[:8]
             log(f"[split] {label}: {lst['mode']} block {b}: dispatch {blk['dispatch_ms']:.1f} "
@@ -1514,7 +2274,8 @@ def log_split(smi, split, label):
         top = sorted(first["ops"].items(), key=lambda kv: -kv[1])[:6]
         log(f"[split] {label}: {rec['kind']} {','.join(rec['modes'])}: open "
             f"{rec['open_ms']:.1f} ms; first block {rec['first_ms']:.1f} ms (feed "
-            f"{rec['first_feed_ms']:.1f}), steady {rec['steady_ms']:.1f} ms (feed "
+            f"{rec['first_feed_ms']:.1f}), capture {rec.get('capture_ms', 0.0):.1f} ms, "
+            f"steady {rec['steady_ms']:.1f} ms (feed "
             f"{rec['steady_feed_ms']:.1f}); first: " + ", ".join(
                 f"{k} {v:.2f}" for k, v in top) + (
                 f"; loads {json.dumps(first['loads'])}" if first["loads"] else ""))
@@ -1671,6 +2432,7 @@ def split_summary(rec):
     ran = [b for b in rec["blocks"] if b["delivered"]]
     whole = [b["dispatch_ms"] + b["complete_ms"] for b in ran]
     return {"first_ms": whole[0], "steady_ms": float(np.median(whole[1:] or whole)),
+            "capture_ms": sum(b["ops"].get("capture", 0.0) for b in rec["blocks"]),
             "first_feed_ms": ran[0]["feed_ms"],
             "steady_feed_ms": float(np.median([b["feed_ms"] for b in ran[1:]]
                                               or [ran[0]["feed_ms"]]))}
@@ -1705,6 +2467,7 @@ def startup_split(root) -> int:
     from openwebrx_tpu_torch.ops import adpcm as adpcm_mod
     from openwebrx_tpu_torch.ops import channelizer
     from openwebrx_tpu_torch.runtime import bank as bank_mod
+    from openwebrx_tpu_torch.runtime import chain as chain_mod
     from openwebrx_tpu_torch.runtime import channelized
     from openwebrx_tpu_torch.runtime import device as device_mod
     from openwebrx_tpu_torch.sources.file import SignalSource
@@ -1726,6 +2489,8 @@ def startup_split(root) -> int:
         orig = getattr(obj, name)
 
         def timed(*a, **k):
+            if torch.cuda.is_current_stream_capturing():
+                return orig(*a, **k)        # recorded, not run: the capture is timed
             key = key_of(*a, **k)
             sync()
             t0 = time.perf_counter()
@@ -1803,6 +2568,9 @@ def startup_split(root) -> int:
     timer(channelized.ChannelizedBank, "__init__", lambda *a, **k: "bank build")
     timer(bank_mod.ChannelBank, "__init__", lambda *a, **k: "bank build")
     timer(channelizer, "design_prototype", lambda *a, **k: "prototype design")
+    graph_step = getattr(chain_mod, "GraphStep", None)   # a checkout with graphs
+    if graph_step is not None:
+        timer(graph_step, "_capture", lambda *a: "capture")
     timer(receiver.ClientDemodulatorChain, "__init__", lambda *a, **k: "chain design")
 
     rows = []
@@ -1845,6 +2613,7 @@ def startup_split(root) -> int:
                 if heard and lst["audio_block"] is None:
                     lst["audio_block"] = len(lst["blocks"]) - 1
             check(lst["audio_block"] is not None, f"startup split: {mode} never heard audio")
+            lst["capture_ms"] = [b["ops"].get("capture", 0.0) for b in lst["blocks"]]
             listeners.append(lst)
         # then, beside those listeners, one program of every other
         # signature, each opened, run to SPLIT_STEADY_BLOCKS deliveries
@@ -1949,6 +2718,7 @@ def server_paths(torch, dev, smi, paths, launches_by_path):
     from openwebrx_tpu_torch.web.http import HttpServer
     from openwebrx_tpu_torch.web.server import build_router
 
+    from torch_graph_scenes import trace_kernels
     t_phase = time.perf_counter()
     work = ROOT / "build" / "chip_smoke"
     data_dir = work / "data"
@@ -1989,115 +2759,130 @@ def server_paths(torch, dev, smi, paths, launches_by_path):
     clipped = write_server_file(torch, dev, path, plan)
     nb_row = rt.fft_chain.waterfall.wire_bytes_per_row
 
-    # the loop's blocks: host time by part and each block's kernel launches
-    spent = {"dispatch": 0.0, "wait": 0.0, "deliver": 0.0}
-    per_block, window = [], {"on": False}
-    dispatch, complete = rt._dispatch_block, rt._complete_block
+    def session(rt, warm_s, window_s, profile_s):
+        """One session of the server on ``rt``: the 64 listeners connect
+        and start, every one hears audio, ``warm_s`` later a window of
+        ``window_s`` is timed, /metrics read and /api/profile run for
+        ``profile_s``; the server and every runtime stop → (out, host
+        seconds by part in the window, each block's launches in it, the
+        listeners' buckets)."""
+        # the loop's blocks: host time by part and each block's kernel launches
+        spent = {"dispatch": 0.0, "wait": 0.0, "deliver": 0.0}
+        per_block, window = [], {"on": False}
+        dispatch, complete = rt._dispatch_block, rt._complete_block
 
-    def timed_dispatch(block):
-        before = [k.launches for k in kernels.ALL]
-        t0 = time.perf_counter()
-        pend = dispatch(block)
-        if window["on"]:
-            spent["dispatch"] += time.perf_counter() - t0
-            per_block.append(tuple(k.launches - b for k, b in zip(kernels.ALL, before)))
-        return pend
-
-    def timed_complete(pend):
-        t0 = time.perf_counter()
-        for p in [*pend["fft_pending"], *(q for ps in pend["bank_pending"].values()
-                                            for q in ps)][:1]:
-            if p.event is not None:       # one event for all of them
-                p.event.synchronize()
-        t1 = time.perf_counter()
-        complete(pend)
-        if window["on"]:
-            spent["wait"] += t1 - t0
-            spent["deliver"] += time.perf_counter() - t1
-
-    rt._dispatch_block, rt._complete_block = timed_dispatch, timed_complete
-    out, buckets = {}, {}
-
-    async def reader(client, st):
-        try:
-            while True:
-                opcode, payload = await client.receive()
-                if opcode == 0x2 and payload[:1] == b"\x02":
-                    if st["first"] is None:
-                        st["first"] = time.perf_counter() - st["t0"]
-                        st["first_blocks"] = rt.gauges["blocks"] - st["block0"]
-                    st["audio"].extend(payload[1:])
-                elif opcode == 0x2 and payload[:1] == b"\x01":
-                    st["rows"] += 1
-                    st["row"] = payload[1:]
-        except (asyncio.IncompleteReadError, ConnectionError):
-            pass
-
-    async def run():
-        server = HttpServer(build_router(), port=0, host="127.0.0.1")
-        await server.start()
-        port = server._server.sockets[0].getsockname()[1]
-        clients, states, tasks = [], [], []
-        t_connect = time.perf_counter()
-        try:
-            for mode, dial in plan:
-                client = await WsClient.connect(port)
-                await client.handshake()
-                await client.expect_json("config")
-                st = {"mode": mode, "dial": dial, "audio": bytearray(), "rows": 0,
-                      "row": None, "first": None, "t0": time.perf_counter(),
-                      "block0": rt.gauges["blocks"]}
-                await client.send_json({"type": "dspcontrol", "action": "start"})
-                await client.send_json({"type": "dspcontrol", "params": {
-                    "mod": mode, "offset_freq": dial, "squelch_level": -150}})
-                clients.append(client)
-                states.append(st)
-                tasks.append(asyncio.create_task(reader(client, st)))
-            out["connect_s"] = time.perf_counter() - t_connect
-            deadline = time.perf_counter() + SRV_DEADLINE_S
-            while any(st["first"] is None for st in states):
-                check(time.perf_counter() < deadline, "7b: a listener never heard audio")
-                await asyncio.sleep(0.05)
-            with rt._lock:
-                for h in rt.handles:
-                    buckets[h.bucket_key] = buckets.get(h.bucket_key, 0) + 1
-            await asyncio.sleep(SRV_WARM_S)
-            marks = [len(st["audio"]) for st in states]
-            rows0 = [st["rows"] for st in states]
-            window["on"] = True
+        def timed_dispatch(block):
+            before = [k.launches for k in kernels.ALL]
             t0 = time.perf_counter()
-            await asyncio.sleep(SRV_WINDOW_S)
-            window["on"] = False
-            out["window_s"] = time.perf_counter() - t0
-            out["rates"] = [(len(st["audio"]) - m) / out["window_s"]
-                            for st, m in zip(states, marks)]
-            out["rows"] = [st["rows"] - r for st, r in zip(states, rows0)]
-            status, body, _ = await http_request(port, "GET", "/metrics")
-            out["metrics"] = body.decode()
-            # 7c: a profile of the running server on the card
-            status, _, cookie = await http_request(
-                port, "POST", "/login", {"username": "smoke", "password": "smoke"})
-            check(status == 200 and cookie, f"7c: login answered {status}")
-            status, body, _ = await http_request(
-                port, "POST", f"/api/profile?seconds={SRV_PROFILE_S}", cookie=cookie)
-            check(status == 200, f"7c: /api/profile answered {status}: {body[:200]!r}")
-            out["profile"] = json.loads(body)
-        finally:
-            for client in clients:
-                client.close()
-            for task in tasks:
-                task.cancel()
-            await asyncio.gather(*tasks, return_exceptions=True)
-            await server.stop()
-            SdrService.stop_all()
-        out["states"] = states
+            pend = dispatch(block)
+            if window["on"]:
+                spent["dispatch"] += time.perf_counter() - t0
+                per_block.append(tuple(k.launches - b for k, b in zip(kernels.ALL, before)))
+            return pend
 
-    try:
-        asyncio.run(run())
-    finally:
-        SdrService.stop_all()
-        logging.getLogger("openwebrx_tpu_torch").removeHandler(errors.handler)
-        del rt._dispatch_block, rt._complete_block
+        def timed_complete(pend):
+            t0 = time.perf_counter()
+            for p in [*pend["fft_pending"], *(q for ps in pend["bank_pending"].values()
+                                                for q in ps)][:1]:
+                if p.event is not None:       # one event for all of them
+                    p.event.synchronize()
+            t1 = time.perf_counter()
+            complete(pend)
+            if window["on"]:
+                spent["wait"] += t1 - t0
+                spent["deliver"] += time.perf_counter() - t1
+
+        rt._dispatch_block, rt._complete_block = timed_dispatch, timed_complete
+        out, buckets = {}, {}
+
+        async def reader(client, st):
+            try:
+                while True:
+                    opcode, payload = await client.receive()
+                    if opcode == 0x2 and payload[:1] == b"\x02":
+                        if st["first"] is None:
+                            st["first"] = time.perf_counter() - st["t0"]
+                            st["first_blocks"] = rt.gauges["blocks"] - st["block0"]
+                        st["audio"].extend(payload[1:])
+                    elif opcode == 0x2 and payload[:1] == b"\x01":
+                        st["rows"] += 1
+                        st["row"] = payload[1:]
+            except (asyncio.IncompleteReadError, ConnectionError):
+                pass
+
+        async def run():
+            server = HttpServer(build_router(), port=0, host="127.0.0.1")
+            await server.start()
+            port = server._server.sockets[0].getsockname()[1]
+            clients, states, tasks = [], [], []
+            t_connect = time.perf_counter()
+            try:
+                for mode, dial in plan:
+                    client = await WsClient.connect(port)
+                    await client.handshake()
+                    await client.expect_json("config")
+                    st = {"mode": mode, "dial": dial, "audio": bytearray(), "rows": 0,
+                          "row": None, "first": None, "t0": time.perf_counter(),
+                          "block0": rt.gauges["blocks"]}
+                    await client.send_json({"type": "dspcontrol", "action": "start"})
+                    await client.send_json({"type": "dspcontrol", "params": {
+                        "mod": mode, "offset_freq": dial, "squelch_level": -150}})
+                    clients.append(client)
+                    states.append(st)
+                    tasks.append(asyncio.create_task(reader(client, st)))
+                out["connect_s"] = time.perf_counter() - t_connect
+                deadline = time.perf_counter() + SRV_DEADLINE_S
+                while any(st["first"] is None for st in states):
+                    check(time.perf_counter() < deadline, "7b: a listener never heard audio")
+                    await asyncio.sleep(0.05)
+                with rt._lock:
+                    for h in rt.handles:
+                        buckets[h.bucket_key] = buckets.get(h.bucket_key, 0) + 1
+                await asyncio.sleep(warm_s)
+                marks = [len(st["audio"]) for st in states]
+                rows0 = [st["rows"] for st in states]
+                window["on"] = True
+                t0 = time.perf_counter()
+                await asyncio.sleep(window_s)
+                window["on"] = False
+                out["window_s"] = time.perf_counter() - t0
+                out["rates"] = [(len(st["audio"]) - m) / out["window_s"]
+                                for st, m in zip(states, marks)]
+                out["rows"] = [st["rows"] - r for st, r in zip(states, rows0)]
+                status, body, _ = await http_request(port, "GET", "/metrics")
+                out["metrics"] = body.decode()
+                # 7c: a profile of the running server on the card
+                status, _, cookie = await http_request(
+                    port, "POST", "/login", {"username": "smoke", "password": "smoke"})
+                check(status == 200 and cookie, f"7c: login answered {status}")
+                blocks0 = rt.gauges["blocks"]
+                status, body, _ = await http_request(
+                    port, "POST", f"/api/profile?seconds={profile_s}", cookie=cookie)
+                check(status == 200, f"7c: /api/profile answered {status}: {body[:200]!r}")
+                out["profile"] = json.loads(body)
+                out["profile_blocks"] = rt.gauges["blocks"] - blocks0
+            finally:
+                for client in clients:
+                    client.close()
+                for task in tasks:
+                    task.cancel()
+                await asyncio.gather(*tasks, return_exceptions=True)
+                await server.stop()
+                SdrService.stop_all()
+            out["states"] = states
+        try:
+            asyncio.run(run())
+        finally:
+            SdrService.stop_all()
+            del rt._dispatch_block, rt._complete_block
+        return out, spent, per_block, buckets
+
+    out, spent, per_block, buckets = session(rt, SRV_WARM_S, SRV_WINDOW_S, SRV_PROFILE_S)
+    graphs = [(k, st.captures, st.replays) for k, st in zip([*rt.banks, "waterfall"],
+                                                            steps_of(rt))]
+    log(f"[server] graph captures and replays by bank: {graphs}")
+    check(len(graphs) == 4 and all(c == 1 and r > 0 for _, c, r in graphs),
+          f"server: captures and replays {graphs}, expected one capture each")
     torch.cuda.synchronize()
     launches = {k.source.name: k.launches for k in kernels.ALL}
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
@@ -2168,24 +2953,17 @@ def server_paths(torch, dev, smi, paths, launches_by_path):
     try:
         events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
     finally:
-        import shutil
         shutil.rmtree(trace_dir, ignore_errors=True)
-    kernel_events = [e for e in events if e.get("cat") == "kernel"]
-    kernels_seen = [e.get("name", "") for e in kernel_events]
-    ours = {n: sum(n in k for k in kernels_seen) for n in (
-        "fold_kernel", "adpcm_kernel", "adpcm_seq_kernel", "agc_kernel",
-        "iir_", "squelch_kernel")}
-    # device busy time: the union of the kernels' intervals (µs)
-    busy_us, end = 0.0, -np.inf
-    for ts, dur in sorted((float(e["ts"]), float(e.get("dur", 0))) for e in kernel_events):
-        busy_us += max(0.0, ts + dur - max(ts, end))
-        end = max(end, ts + dur)
-    busy_ms = busy_us / 1e3
+    kernels_seen, ours = trace_kernels(events)
+    busy = busy_ms(kernels_seen)
     log(f"[profile] /api/profile?seconds={SRV_PROFILE_S}: {len(events)} trace events, "
         f"{len(kernels_seen)} CUDA kernel events, hand-written kernels among them "
-        f"{ours}; device busy {busy_ms:.3f} ms of the {SRV_PROFILE_S * 1e3:.0f} ms "
-        f"traced (idle share {1 - busy_ms / (SRV_PROFILE_S * 1e3):.4f})")
+        f"{ours}; device busy {busy:.3f} ms of the {SRV_PROFILE_S * 1e3:.0f} ms "
+        f"traced (idle share {1 - busy / (SRV_PROFILE_S * 1e3):.4f})")
     check(kernels_seen, "7c: the profile holds no CUDA kernel events")
+    whole = check_traced_blocks("7c", kernels_seen)
+    log(f"[profile] {len(whole)} whole blocks in the trace, each with the hand-written "
+        f"launches {SRV_LAUNCHES_PER_BLOCK}")
     log(f"[server] phases 7b and 7c took {time.perf_counter() - t_phase:.1f} s")
     paths["server"] = {
         "ms_per_block": float(proc_ms.group(1)), "realtime_factor": float(rt_factor.group(1)),
@@ -2194,8 +2972,69 @@ def server_paths(torch, dev, smi, paths, launches_by_path):
                            "p95": float(np.percentile(first, 95))},
         "audio_rate_of_nominal": [float(rates.min()), float(rates.max())],
         "tone_snr_db": [min(snrs), max(snrs)], "profile_kernel_events": len(kernels_seen),
-        "profile_device_busy_ms": busy_ms, "profile_hand_kernel_events": ours}
+        "profile_device_busy_ms": busy, "profile_hand_kernel_events": ours}
     del rt
+    torch.cuda.empty_cache()
+
+    # 7b alternated: sessions of the same server, its runtime's banks and
+    # programs built with the eager step (E) or the graph (G), in ALT_ORDER
+    from torch_graph_scenes import runtime_graph
+    t_alt = time.perf_counter()
+    alt = {"eager": [], "graph": []}
+    for graph in ALT_ORDER:
+        with runtime_graph(graph):
+            rt = SdrService.get_device("srv")
+            out, spent, per_block, _ = session(rt, SRV_ALT_WARM_S, SRV_ALT_WINDOW_S,
+                                               SRV_ALT_PROFILE_S)
+        n_win = len(per_block)
+        check(n_win > 0 and set(per_block) == {expected},
+              f"server ({'graph' if graph else 'eager'}): launches a block {set(per_block)}")
+        trace_dir = Path(out["profile"]["trace_dir"])
+        try:
+            events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+        finally:
+            shutil.rmtree(trace_dir, ignore_errors=True)
+        seen, hand = trace_kernels(events)
+        side = "graph" if graph else "eager"
+        whole = check_traced_blocks(f"server ({side})", seen)
+        blocks_traced = max(1, out["profile_blocks"])
+        captured = [st.captures for st in steps_of(rt)]
+        check(all(captured) if graph else not any(captured),
+              f"server ({side}): captures by step {captured}")
+        steps = [st for st in steps_of(rt) if st._graph is not None]
+        device_ms = sum(replay_ms(torch, st) for st in steps)
+        proc_ms = re.search(r"^device_srv_proc_block_ms ([0-9.]+)$", out["metrics"], re.M)
+        first = np.asarray([st["first"] for st in out["states"]]) * 1e3
+        alt["graph" if graph else "eager"].append({
+            "first_audio_ms": {"p50": float(np.percentile(first, 50)),
+                               "p95": float(np.percentile(first, 95))},
+            "host_ms": {k: v / n_win * 1e3 for k, v in spent.items()},
+            "proc_block_ms": float(proc_ms.group(1)), "blocks": n_win,
+            "profile_whole_blocks": len(whole),
+            "profile_kernel_events_per_block": len(seen) / blocks_traced,
+            "profile_hand_written_per_block": {k: v / blocks_traced for k, v in hand.items()},
+            "profile_idle_share": 1 - busy_ms(seen) / (SRV_ALT_PROFILE_S * 1e3),
+            "device_ms_per_block": device_ms,
+            "captures": [{"captures": st.captures, "capture_ms": st.capture_ms,
+                          "pool_mib": st.pool_mib} for st in steps]})
+        r = alt["graph" if graph else "eager"][-1]
+        log(f"[server alt] {'G' if graph else 'E'} {smi}: {n_win} blocks; host ms a block "
+            + ", ".join(f"{k} {v:.3f}" for k, v in r["host_ms"].items())
+            + f"; proc_block_ms {r['proc_block_ms']}; first audio after dspcontrol p50 "
+            f"{r['first_audio_ms']['p50']:.1f} ms, p95 {r['first_audio_ms']['p95']:.1f} ms "
+            f"(banks new to the session); launches a block {SRV_LAUNCHES_PER_BLOCK} (counters), "
+            f"the trace's {len(whole)} whole blocks the same; profiler kernel events a "
+            f"block {r['profile_kernel_events_per_block']:.1f} (hand-written "
+            f"{r['profile_hand_written_per_block']}), idle share {r['profile_idle_share']:.4f}"
+            + (f"; device ms a block (replays) {device_ms:.4f}; captures "
+               + "; ".join(f"{c['captures']} in {c['capture_ms']:.1f} ms, pool "
+                           f"{c['pool_mib']:.1f} MiB" for c in r["captures"])
+               if graph else ""))
+        del rt
+    errors.check("server alternation")
+    logging.getLogger("openwebrx_tpu_torch").removeHandler(errors.handler)
+    log(f"[server] 7b alternated took {time.perf_counter() - t_alt:.1f} s")
+    paths["server"]["alternation"] = alt
     torch.cuda.empty_cache()
 
 
@@ -2490,20 +3329,20 @@ def pod_ranks(torch, dev, smi, paths, launches_by_path, seen, world=POD_RANKS):
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    sys.path.insert(0, str(ROOT / "tests"))      # torch_graph_scenes, the golden scenes
     from openwebrx_tpu_torch import kernels
     from openwebrx_tpu_torch.models.digital_voice import DV_FACTORY
-    from openwebrx_tpu_torch.models.receiver import (
-        MODE_BANDPASS, ClientDemodulatorChain, FftChain, build_program)
-    from openwebrx_tpu_torch.models.secondary import SECONDARY_FACTORY, PskChain
-    from openwebrx_tpu_torch.models.stages import block_requirement, plan_block_size
+    from openwebrx_tpu_torch.models.receiver import ClientDemodulatorChain, FftChain
+    from openwebrx_tpu_torch.models.secondary import SECONDARY_FACTORY
+    from openwebrx_tpu_torch.models.stages import plan_block_size
     from openwebrx_tpu_torch.ops import adpcm, agc, channelizer, iir, squelch
     from openwebrx_tpu_torch.ops.fold import polyphase_fold, polyphase_fold_plain
     from openwebrx_tpu_torch.ops.formats import Format, StreamSpec
-    from openwebrx_tpu_torch.runtime.bank import ChannelBank
     from openwebrx_tpu_torch.runtime.chain import Fanout, Program, tree_map
     from openwebrx_tpu_torch.runtime.channelized import ChannelizedBank
 
@@ -3147,289 +3986,8 @@ def main() -> int:
     stop_recording = record_shapes(seen)
     paths = {}
     launches_by_path = {}
-    n_blocks = WARMUP_BLOCKS + TIMED_BLOCKS
-
-    bank_paths = [
-        # label, mode, m, audio rate, blocks timed, expected launches/block
-        ("usb", "usb", 1024, 12000.0, TIMED_BLOCKS,
-         launches_per_block(fold=1, adpcm_=1, agc_=1, squelch_=1)),
-        ("nfm", "nfm", 1024, 12000.0, TIMED_BLOCKS,
-         launches_per_block(fold=1, adpcm_=1, iir_=1, agc_=1, squelch_=1)),
-        ("am", "am", 2048, 12000.0, TIMED_BLOCKS,
-         launches_per_block(fold=1, adpcm_=1, iir_=1, agc_=1, squelch_=1)),
-        ("wfm", "wfm", 128, 48000.0, 5,
-         launches_per_block(fold=1, adpcm_=1, iir_=1, squelch_=1)),
-    ]
-    for label, mode, m, rate, n_timed, per_block in bank_paths:
-        bank = ChannelizedBank(FS, m, mode=mode, audio_rate=rate,
-                               compression="adpcm", target_seconds=0.05,
-                               device=dev)
-        for i in range(m):
-            bank.assign(float((i - m // 2) * FS / m))
-        carriers = [float((i * m // M - m // 2) * FS / m) for i in TONE_CHANNELS]
-        tone_slots = [bank.channel_for(f)[0] for f in carriers]   # dense: slot k
-        nb = WARMUP_BLOCKS + n_timed
-        blocks = seeded_blocks(torch, gen, dev, FS, bank.block, nb, carriers,
-                               mode)
-        results, wall, launches, peak = drive(
-            label, bank.dispatch, bank.fetch, blocks, kernels, torch, dev)
-        launches_by_path[label] = launches
-        check_launches(label, launches, {k: v * nb for k, v in per_block.items()})
-        out_bytes = bank.channel_block * int(rate) // int(bank.channel_rate) // 2
-        sq_stage = bank.chain.selector.squelch
-        windows = sq_stage.block // sq_stage.window
-        for y, aux in results:
-            data, strides = y
-            pdb = aux["selector.squelch.power_db"]
-            check(data.shape == (m, out_bytes) and data.dtype == np.uint8,
-                  f"{label}: bytes {data.shape} {data.dtype}")
-            check(strides.shape == (m, out_bytes // adpcm.STATE_STRIDE)
-                  and strides.dtype == np.int32, f"{label}: stride {strides.shape}")
-            check(pdb.shape == (m, windows) and pdb.dtype == np.float32
-                  and np.isfinite(pdb).all(), f"{label}: power_db {pdb.shape}")
-            if mode == "wfm":
-                rds = aux["wfm.rds_tap.rds"]
-                check(rds.shape == (m, bank.channel_block * 250 // 384 // 16)
-                      and rds.dtype == np.complex64 and np.isfinite(rds).all(),
-                      f"wfm: rds aux {rds.shape} {rds.dtype}")
-        for k in tone_slots:
-            audio_k = decode_channel([(y[0][k], y[1][k]) for y, _ in results], adpcm)
-            settled = audio_k[len(audio_k) // 2:].astype(np.float32) / 32767
-            snr = tone_snr(settled, TONE_AUDIO_HZ, rate)
-            log(f"[{label}] slot {k}: {mode} tone SNR {snr:.1f} dB "
-                f"(minimum {TONE_SNR_MIN_DB})")
-            check(snr > TONE_SNR_MIN_DB, f"{label}: channel {k} tone SNR {snr:.1f} dB")
-        quiet = decode_channel([(y[0][5], y[1][5]) for y, _ in results], adpcm)
-        check(np.isfinite(quiet).all(), f"{label}: quiet channel audio")
-        paths[label] = report(label, smi, wall, n_timed, bank.block, FS, peak)
-        del bank, blocks, results
-        torch.cuda.empty_cache()
-
-    # BASELINE config #1: 2.4 MS/s → NFM → 12 kHz ADPCM through Program
-    chain = ClientDemodulatorChain(CFG1_FS, mode="nfm", compression="adpcm")
-    chain.set_frequency_offset(CFG1_OFFSET)
-    prog = build_program(chain, CFG1_FS, target_seconds=0.1, device=dev)
-    blocks = seeded_blocks(torch, gen, dev, CFG1_FS, prog.block, n_blocks,
-                           [CFG1_OFFSET], "nfm", noise=0.05)
-    results, wall, launches, peak = drive(
-        "cfg1", prog.dispatch, prog.fetch, blocks, kernels, torch, dev)
-    launches_by_path["cfg1"] = launches
-    check_launches("cfg1", launches, {k: v * n_blocks for k, v in launches_per_block(
-        adpcm_=1, iir_=1, agc_=1, squelch_=1).items()})
-    for y, aux in results:
-        data, strides = y
-        check(data.shape == (prog.out_block,) and data.dtype == np.uint8,
-              f"cfg1: bytes {data.shape} {data.dtype}")
-        check(strides.shape == (prog.out_block // adpcm.STATE_STRIDE,)
-              and strides.dtype == np.int32, f"cfg1: stride {strides.shape}")
-        pdb = aux["selector.squelch.power_db"]
-        check(pdb.dtype == np.float32 and np.isfinite(pdb).all(), "cfg1: power_db")
-    audio1 = decode_channel([y for y, _ in results], adpcm)
-    snr = tone_snr(audio1[len(audio1) // 2:].astype(np.float32) / 32767,
-                   TONE_AUDIO_HZ, 12000.0)
-    log(f"[cfg1] NFM tone at {CFG1_OFFSET:.0f} Hz: SNR {snr:.1f} dB "
-        f"(minimum {TONE_SNR_MIN_DB})")
-    check(snr > TONE_SNR_MIN_DB, f"cfg1: tone SNR {snr:.1f} dB")
-    paths["cfg1"] = report("cfg1", smi, wall, TIMED_BLOCKS, prog.block,
-                           CFG1_FS, peak)
-    del prog, blocks, results
-
-    # BASELINE config #2: a 4096-bin compressed waterfall, one USB listener
-    # on a 64-channel PFB bank and one edge dial on a full-rate ChannelBank,
-    # all fed from one device-resident block per step
-    lbank = ChannelizedBank(CFG2_FS, 64, mode="usb", compression="adpcm",
-                            target_seconds=0.04, device=dev)
-    lslot = lbank.assign(CFG2_LISTENER)
-    ebank = ChannelBank(CFG2_FS, "usb", capacity=16, block=lbank.block, device=dev)
-    check(lbank.block == 120000 and ebank.chunk_ratio == 1
-          and not lbank.fits(CFG2_EDGE, *MODE_BANDPASS["usb"]),
-          f"config #2 plan: block {lbank.block}, chunk ratio {ebank.chunk_ratio}")
-    eslot = ebank.add_channel(CFG2_EDGE)
-    wf2 = FftChain(WF_SIZE, 20.0, compress=True)
-    wf2_prog = Program(wf2, spec24, lbank.block, device=dev)
-    nb = wf2.waterfall.wire_bytes_per_row
-    check((wf2.waterfall.rows, wf2.waterfall.averages, nb) == (1, 29, 2053),
-          f"config #2 waterfall plan {wf2.waterfall.rows} {wf2.waterfall.averages} {nb}")
-    blocks = seeded_blocks(torch, gen, dev, CFG2_FS, lbank.block, n_blocks,
-                           [CFG2_LISTENER, CFG2_EDGE], "usb", noise=0.05)
-
-    def cfg2_dispatch(x):
-        return (wf2_prog.dispatch(x), lbank.dispatch(x), ebank.feed_dispatch(x))
-
-    def cfg2_fetch(w, lb, eb):
-        return wf2_prog.fetch(*w), lbank.fetch(*lb), ebank.program.fetch(*eb)
-
-    results, wall, launches, peak = drive(
-        "cfg2", cfg2_dispatch, cfg2_fetch, blocks, kernels, torch, dev)
-    launches_by_path["cfg2"] = launches
-    check_launches("cfg2", launches, {k: v * n_blocks for k, v in launches_per_block(
-        fold=1, adpcm_=2, agc_=2, squelch_=2, seq=1).items()})
-    bins = {f: WF_SIZE // 2 + int(round((f + TONE_AUDIO_HZ) / CFG2_FS * WF_SIZE))
-            for f in (CFG2_LISTENER, CFG2_EDGE)}
-    for (raw, _), (ly, la), (ey, ea) in results:
-        check(raw.shape == (1, SEQ_ROW // 2) and raw.dtype == np.uint8,
-              f"cfg2: waterfall rows {raw.shape} {raw.dtype}")
-        check(ly[0].shape == (64, 300) and ey[0].shape == (16, 300)
-              and la["selector.squelch.power_db"].shape == (64, 1)
-              and ea["selector.squelch.power_db"].shape == (16, 1),
-              "cfg2: listener outputs")
-    row = decoded_row(results[-1][0][0][0], nb, adpcm)
-    for f, k in bins.items():
-        peak_bin = k - 4 + int(np.argmax(row[k - 4:k + 5]))
-        rise = row[peak_bin] - np.median(row)
-        log(f"[cfg2] waterfall: tone at {f + TONE_AUDIO_HZ:.0f} Hz peaks in bin "
-            f"{peak_bin} (expected {k} ± 1), {rise:.1f} dB above the median")
-        check(abs(peak_bin - k) <= 1 and rise > 20.0, f"cfg2: waterfall tone at {f}")
-    for label, bank_out, slot in (("listener", 1, lslot), ("edge", 2, eslot)):
-        audio = decode_channel([(r[bank_out][0][0][slot], r[bank_out][0][1][slot])
-                                for r in results], adpcm)
-        snr = tone_snr(audio[len(audio) // 2:].astype(np.float32) / 32767,
-                       TONE_AUDIO_HZ, 12000.0)
-        log(f"[cfg2] {label} slot {slot}: USB tone SNR {snr:.1f} dB (minimum "
-            f"{TONE_SNR_MIN_DB})")
-        check(snr > TONE_SNR_MIN_DB, f"cfg2: {label} tone SNR {snr:.1f} dB")
-    paths["cfg2"] = report("cfg2", smi, wall, TIMED_BLOCKS, lbank.block, CFG2_FS, peak)
-    del lbank, ebank, wf2_prog, blocks, results
-
-    # BASELINE config #4: BPSK31 ×16 and USB audio ×16 in one Fanout,
-    # delivered in 6-block batches; the first batch is checked against the
-    # same Fanout on the CPU
-    def cfg4_fanout():
-        psk = PskChain(CFG2_FS, baud=31.25)
-        psk.selector.shift.set_rate(
-            -(np.arange(CFG4_CHANNELS, dtype=np.float32) * 5e3 + 50e3) / CFG2_FS)
-        aud = ClientDemodulatorChain(CFG2_FS, 12000.0, "usb", "none")
-        aud.selector.shift.set_rate(
-            -(np.arange(CFG4_CHANNELS, dtype=np.float32) * 5e3 + 60e3) / CFG2_FS)
-        return psk, aud, Fanout([("psk", psk), ("audio", aud)], batch_shapes={
-            "psk": (CFG4_CHANNELS,), "audio": (CFG4_CHANNELS,)})
-
-    psk4, aud4, fan4 = cfg4_fanout()
-    ra, rb = block_requirement(psk4, spec24), block_requirement(aud4, spec24)
-    req = ra * rb // int(np.gcd(ra, rb))
-    block4 = (int(round(CFG2_FS * 0.1)) + req - 1) // req * req
-    check(block4 == 307200, f"config #4 block {block4}")
-    prog4 = Program(fan4, spec24, block4, device=dev)
-    n4 = 4 * CFG4_BATCH
-    blocks = seeded_blocks(torch, gen, dev, CFG2_FS, block4, n4, [60e3], "usb")
-    torch.cuda.synchronize()
-    for k in kernels.ALL:
-        k.launches = 0
-    results4, pend, batch, t_start = [], [], [], None
-    for i, x in enumerate(blocks):
-        if i == CFG4_BATCH:                       # after the first batch
-            torch.cuda.synchronize()
-            t_start = time.perf_counter()
-        batch.append(prog4.dispatch_quiet(x))
-        if len(batch) == CFG4_BATCH:
-            pend.append(prog4.join_pending(batch))
-            batch = []
-        if len(pend) >= 2:                        # two batches in flight
-            results4 += prog4.fetch_many(*pend.pop(0))
-    while pend:
-        results4 += prog4.fetch_many(*pend.pop(0))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_start
-    launches = {k.source.name: k.launches for k in kernels.ALL}
-    log(f"[cfg4] launches: {launches} (blocks fed: {n4})")
-    launches_by_path["cfg4"] = launches
-    check_launches("cfg4", launches, {k: v * n4 for k, v in launches_per_block(
-        agc_=1, squelch_=1).items()})
-    symbols = 0
-    for y, aux in results4:
-        check(y["psk"].shape == (CFG4_CHANNELS, int(block4 * 31.25 / CFG2_FS))
-              and y["psk"].dtype == np.complex64
-              and y["audio"].shape == (CFG4_CHANNELS, 1536)
-              and y["audio"].dtype == np.int16
-              and aux["psk.secondary_fft.rows"].shape == (CFG4_CHANNELS, 1, 2048)
-              and aux["audio.selector.squelch.power_db"].shape == (CFG4_CHANNELS, 2),
-              f"cfg4: output shapes {y['psk'].shape} {y['audio'].shape}")
-        symbols += y["psk"].shape[-1]
-    check(len(results4) == n4 and symbols == n4 * 4,
-          f"cfg4: {len(results4)} results, {symbols} symbols a channel")
-    _, _, fan4_cpu = cfg4_fanout()
-    prog4_cpu = Program(fan4_cpu, spec24, block4, device="cpu")
-    psk_err, aud_err, pdb_err = 0.0, 0, 0.0
-    for x, (y, aux) in zip(blocks[:CFG4_BATCH], results4):
-        yc, ac = prog4_cpu.process(x.cpu())
-        psk_err = max(psk_err, float(np.abs(y["psk"] - yc["psk"]).max()
-                                     / np.abs(yc["psk"]).max()))
-        aud_err = max(aud_err, int(np.abs(y["audio"].astype(np.int32)
-                                          - yc["audio"].astype(np.int32)).max()))
-        key = "audio.selector.squelch.power_db"
-        pdb_err = max(pdb_err, float(np.abs(aux[key] - ac[key]).max()))
-    log(f"[cfg4] first batch card vs CPU: psk symbols max diff {psk_err:.2e} of "
-        f"max|y| (tolerance {CHAIN_RTOL}), audio {aud_err} LSB (tolerance "
-        f"{SMALL_BANK_LSB}), squelch power {pdb_err:.2e} dB; {symbols} symbols "
-        f"a channel over {n4} blocks")
-    check(psk_err <= CHAIN_RTOL and aud_err <= SMALL_BANK_LSB
-          and pdb_err <= SQUELCH_DB_TOL, "cfg4: card and CPU disagree")
-    audio4 = np.concatenate([y["audio"][0] for y, _ in results4])
-    snr = tone_snr(audio4[len(audio4) // 2:].astype(np.float32) / 32767,
-                   TONE_AUDIO_HZ, 12000.0)
-    log(f"[cfg4] audio channel 0: USB tone SNR {snr:.1f} dB (minimum {TONE_SNR_MIN_DB})")
-    check(snr > TONE_SNR_MIN_DB, f"cfg4: tone SNR {snr:.1f} dB")
-    paths["cfg4"] = report("cfg4", smi, wall, n4 - CFG4_BATCH, block4, CFG2_FS,
-                           torch.cuda.max_memory_allocated(dev) / 2 ** 20)
-    del prog4, prog4_cpu, blocks, results4
-
-    # the 1024-channel USB bank beside the waterfall a config #5 device
-    # runs for its subscribers: FftChain(4096, 9) on the same 49.152 MS/s
-    # block, 600 averaged frames a 0.05 s row; the waterfall alone, then both
-    ubank = ChannelizedBank(FS, M, mode="usb", compression="adpcm",
-                            target_seconds=0.05, device=dev)
-    for i in range(M):
-        ubank.assign(float((i - M // 2) * FS / M))
-    wf5 = FftChain(WF_SIZE, 9.0, compress=True)
-    wf5_prog = Program(wf5, StreamSpec(Format.COMPLEX_FLOAT, FS), ubank.block,
-                       device=dev)
-    check((wf5.waterfall.rows, wf5.waterfall.averages) == (1, 600),
-          f"waterfall plan at 49.152 MS/s: {wf5.waterfall.rows} rows of "
-          f"{wf5.waterfall.averages}")
-    carriers = [float((i - M // 2) * FS / M) for i in TONE_CHANNELS]
-    blocks = seeded_blocks(torch, gen, dev, FS, ubank.block, n_blocks, carriers, "usb")
-    results, wall, launches, peak = drive(
-        "wf", wf5_prog.dispatch, wf5_prog.fetch, blocks, kernels, torch, dev)
-    launches_by_path["wf"] = launches
-    check_launches("wf", launches, {k: v * n_blocks for k, v in launches_per_block(seq=1).items()})
-    # 600 averages leave a floor smooth to ±0.2 dB, so the codec's step is
-    # small when a tone's 37 dB peak arrives and the decoded peak comes out
-    # ~25 dB low and a bin late (the reference encoder does the same; the
-    # bytes are bit-identical to it): the tone must be there, ±1 bin
-    row = decoded_row(results[-1][0][0], wf5.waterfall.wire_bytes_per_row, adpcm)
-    for f in carriers:
-        k = WF_SIZE // 2 + int(round((f + TONE_AUDIO_HZ) / FS * WF_SIZE))
-        peak_bin = k - 4 + int(np.argmax(row[k - 4:k + 5]))
-        rise = row[peak_bin] - np.median(row)
-        log(f"[wf] waterfall: tone at {f + TONE_AUDIO_HZ:.0f} Hz peaks in bin "
-            f"{peak_bin} (expected {k} ± 1), {rise:.1f} dB above the median "
-            f"after decoding")
-        check(abs(peak_bin - k) <= 1 and rise > 3.0,
-              f"wf: tone at {f} peaks in bin {peak_bin}, expected {k}")
-    paths["wf"] = report("wf", smi, wall, TIMED_BLOCKS, ubank.block, FS, peak)
-
-    def both_dispatch(x):
-        return wf5_prog.dispatch(x), ubank.dispatch(x)
-
-    def both_fetch(w, b):
-        return wf5_prog.fetch(*w), ubank.fetch(*b)
-
-    results, wall, launches, peak = drive(
-        "usb+wf", both_dispatch, both_fetch, blocks, kernels, torch, dev)
-    launches_by_path["usb+wf"] = launches
-    check_launches("usb+wf", launches, {k: v * n_blocks for k, v in launches_per_block(
-        fold=1, adpcm_=1, agc_=1, squelch_=1, seq=1).items()})
-    for k in [ubank.channel_for(f)[0] for f in carriers]:
-        audio = decode_channel([(r[1][0][0][k], r[1][0][1][k]) for r in results], adpcm)
-        snr = tone_snr(audio[len(audio) // 2:].astype(np.float32) / 32767,
-                       TONE_AUDIO_HZ, 12000.0)
-        check(snr > TONE_SNR_MIN_DB, f"usb+wf: channel {k} tone SNR {snr:.1f} dB")
-    log(f"[usb+wf] tones decoded in slots {[ubank.channel_for(f)[0] for f in carriers]}")
-    paths["usb+wf"] = report("usb+wf", smi, wall, TIMED_BLOCKS, ubank.block, FS, peak)
-    del ubank, wf5_prog, blocks, results
-    torch.cuda.empty_cache()
-
-    runtime_paths(torch, dev, smi, paths, launches_by_path)
+    alt = {}
+    full_width_paths(torch, dev, smi, paths, launches_by_path, alt)
     split = cli_session(smi, paths, adpcm)
     server_paths(torch, dev, smi, paths, launches_by_path)
     pod_one_rank(torch, dev, smi, paths, launches_by_path)
@@ -3447,6 +4005,7 @@ def main() -> int:
         check(seen[name] == want, f"{name} shapes on the paths {seen[name]} are "
               f"not the expected {want}")
     print(json.dumps({"card": smi, "paths": paths}), flush=True)
+    print(json.dumps({"card": smi, "graph_alternation": alt}), flush=True)
 
     # -- 6. kernel timings at the main-path shapes ------------------------------
     iters = 50
@@ -3827,6 +4386,7 @@ def main() -> int:
          "cycles_per_nibble": seq_step_ms * clock_mhz * 1e3, "library_ms": None,
          "by_shape": seq_rows},
     ]}
+    log(f"[smoke] every phase passed in {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"startup_split": split}), flush=True)
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

@@ -16,11 +16,19 @@ and returns ``cudaGetLastError()`` after its launch.
 current device for the call (a thread's current device is device 0 until
 it is set, and a launch on another device's stream fails), passes that
 device's current PyTorch stream, and raises when the return is not 0.
+
+A launch made while a block step is captured into a CUDA graph
+(``runtime/chain.py`` ``GraphStep``) is counted into the capture's record
+(:func:`recording`), not into ``launches``: the capture runs nothing.
+Every replay of the graph then adds the record to the counts
+(:func:`count_replay`), so ``launches`` stays the number of times each
+kernel ran.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -127,7 +135,34 @@ class CudaKernel:
         if rc != 0:
             msg = self._lib.owrx_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {rc} ({msg})")
-        self.launches += 1
+        record = getattr(_capture, "record", None)
+        if record is None:
+            self.launches += 1
+        else:
+            record[self] = record.get(self, 0) + 1
+
+
+# the launch record of the capture this thread is making, if any
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Count the launches this thread makes inside the block into a dict
+    (kernel → launches) instead of ``launches``: a CUDA graph capture
+    records the launches without running them."""
+    outer = getattr(_capture, "record", None)
+    _capture.record = record = {}
+    try:
+        yield record
+    finally:
+        _capture.record = outer
+
+
+def count_replay(record: dict) -> None:
+    """One replay of a captured graph ran every launch of its ``record``."""
+    for kernel, n in record.items():
+        kernel.launches += n
 
 
 _P = ctypes.c_void_p

@@ -30,7 +30,7 @@ class ChannelBank:
     def __init__(self, in_rate: float, mode: str = "nfm", capacity: int = 16,
                  audio_rate: float = 12000.0, compression: str = "adpcm",
                  target_seconds: float = 0.1, block: int | None = None,
-                 device="cuda"):
+                 device="cuda", graph: bool = True):
         self.in_rate = float(in_rate)
         self.mode = mode
         self.capacity = int(capacity)
@@ -57,7 +57,8 @@ class ChannelBank:
             self.block = plan_block_size(self.chain, spec, target_seconds)
         self._accum: list = []
         self.program = Program(self.chain, spec, self.block,
-                               batch_shape=(capacity,), device=device)
+                               batch_shape=(capacity,), device=device,
+                               graph=graph)
         self.device = self.program.device
         self._push_params()
 

@@ -21,6 +21,15 @@ Params are versioned: every live setter bumps its stage's version, and a
 bank or Program rebuilds (and uploads) its params only when the chain's
 aggregate version changed.
 
+The reference compiles a Program's block step once (``jax.jit`` with the
+state donated); here ``GraphStep`` is its counterpart.  The step is a
+function of buffers that live as long as the program: a static input
+block, static params (rewritten in place when a setter moved the params
+version) and static state (the step writes the new state into it, as the
+donation does).  On a card it is captured once per layout as a CUDA graph
+and every later block is one replay; on the CPU, or with ``graph=False``,
+the same step runs eagerly over the same buffers.
+
 The reference's tunnel plumbing (complex packing at jit boundaries, the
 fused int32 output buffer, the transport keepalive) is not ported: results
 come back as the same host objects through pinned asynchronous copies, and
@@ -31,14 +40,17 @@ behind one event.
 from __future__ import annotations
 
 import abc
+import contextlib
+import gc
 import hashlib
 import threading
+import time
 from math import gcd
 
 import numpy as np
 import torch
 
-from openwebrx_tpu_torch import resolve_device
+from openwebrx_tpu_torch import kernels, resolve_device
 
 
 def digest(arr) -> str:
@@ -303,33 +315,276 @@ def host_unpack_complex(v) -> np.ndarray:
     return a.view(np.complex64)[..., 0]
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of tuples, lists and dicts, in tree_map order."""
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_layout(tree):
+    """What a CUDA graph of a step is specialised to: the tree's structure,
+    every tensor leaf's shape, dtype and device, every other leaf's value."""
+    if isinstance(tree, (tuple, list)):
+        return ("seq",) + tuple(tree_layout(t) for t in tree)
+    if isinstance(tree, dict):
+        return ("map",) + tuple((k, tree_layout(v)) for k, v in tree.items())
+    if torch.is_tensor(tree):
+        return (tuple(tree.shape), tree.dtype, tree.device)
+    return ("value", tree)
+
+
+_gc_lock = threading.Lock()
+_gc_pauses = [0, False]          # captures under way, whether gc was on
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """Python's cyclic garbage collector off while any thread captures: a
+    collection inside a capture may free another program's CUDA graph,
+    whose destruction on the capturing thread invalidates the capture."""
+    with _gc_lock:
+        if _gc_pauses[0] == 0:
+            _gc_pauses[1] = gc.isenabled()
+            gc.disable()
+        _gc_pauses[0] += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_pauses[0] -= 1
+            if _gc_pauses[0] == 0 and _gc_pauses[1]:
+                gc.enable()
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def _same_view(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride())
+
+
+def _copy_into(static, tree) -> bool:
+    """Copy ``tree`` into the static tensors of ``static`` leaf by leaf →
+    False, copying nothing, when their layouts differ."""
+    if static is None or tree_layout(tree) != tree_layout(static):
+        return False
+    for dst, src in zip(tree_leaves(static), tree_leaves(tree)):
+        if torch.is_tensor(dst) and not _same_view(dst, src):
+            dst.copy_(src)
+    return True
+
+
+class GraphStep:
+    """A block step ``fn(state, params, x) -> (state, y, aux)`` over
+    buffers that live as long as it does: the counterpart of the
+    reference's ``jax.jit(step, donate_argnums=(0,))``.
+
+    ``x`` (the input block), ``params`` and ``state`` are static tensors:
+    each call copies the block into ``x``, ``set_params`` copies changed
+    params into ``params`` and the step writes the new state into
+    ``state`` in place.  A leaf whose layout (shape, dtype, the value of a
+    non-tensor leaf) changes is replaced instead, which drops the graph.
+
+    With ``capture`` on a card, the first block at a layout runs eagerly on
+    a side stream (paying every lazy cost: cuFFT plans, cuDNN algorithms,
+    the kernels' shared-memory attributes), the next is captured as a CUDA
+    graph in its own memory pool and every block from then on is one
+    ``replay()`` on the current stream.  The capture records each kernel's
+    launches (``kernels.recording``) and every replay adds them to the
+    counts.  A capture or replay failure raises; nothing falls back to the
+    eager step, and a step that gives its state a new layout on two blocks
+    in a row (which no graph could hold) raises too.  Without ``capture``,
+    or on the CPU, the same step runs eagerly over the same buffers.  ``captures`` counts the graphs
+    captured and ``replays`` the blocks replayed; ``capture_ms`` and
+    ``pool_mib`` are the last capture's wall time and the device memory
+    its pool reserved."""
+
+    def __init__(self, fn, state, device: torch.device, capture: bool = True):
+        self.fn = fn
+        self.device = device
+        self.capture = bool(capture) and device.type == "cuda"
+        self.state = state
+        self.params = None
+        self.x = None
+        self.captures = self.replays = 0
+        self.capture_ms = None
+        self.pool_mib = None
+        self._params_src = None
+        self._unsettled = False          # the last block changed the state's layout
+        # the eager first block and the capture run on a stream of their own
+        self._side = torch.cuda.Stream(device) if self.capture else None
+        self._drop()
+
+    def _drop(self):
+        """Forget the graph: the next block runs eagerly, the one after it
+        is captured."""
+        self._graph = self._out = None
+        self._record = {}
+        self._ready = False
+
+    def set_state(self, state):
+        """Set the state: copied into the static tensors, or adopted when
+        its layout differs."""
+        if not _copy_into(self.state, state):
+            self.state = state
+            self._drop()
+
+    def set_params(self, params):
+        """Set the params: nothing when ``params`` is the tree set last,
+        else copied into the static tensors, or adopted when the layout
+        differs (the first tree is adopted as the static params)."""
+        if params is self._params_src:
+            return
+        if not _copy_into(self.params, params):
+            self.params = params
+            self._drop()
+        self._params_src = params
+
+    def _body(self):
+        """One step over the static buffers → (y, aux); the new state is
+        written into ``state``; an output that aliases a static buffer is
+        copied out first.  Returns whether the state's layout held."""
+        new_state, y, aux = self.fn(self.state, self.params, self.x)
+        static = {_storage(t) for t in tree_leaves((self.state, self.params, self.x))
+                  if torch.is_tensor(t)}
+        y, aux = tree_map(lambda t: t.clone() if torch.is_tensor(t)
+                          and _storage(t) in static else t, (y, aux))
+        if tree_layout(new_state) != tree_layout(self.state):
+            self.state = tree_map(
+                lambda t: t.clone() if torch.is_tensor(t) else t, new_state)
+            return y, aux, False
+        held = {_storage(t) for t in tree_leaves(self.state) if torch.is_tensor(t)}
+        pairs = [(d, s.clone() if _storage(s) in held else s)
+                 for d, s in zip(tree_leaves(self.state), tree_leaves(new_state))
+                 if torch.is_tensor(d) and not _same_view(d, s)]
+        for dst, src in pairs:
+            dst.copy_(src)
+        return y, aux, True
+
+    def __call__(self, x: torch.Tensor, own: bool = True):
+        """Run one block → (y, aux) on the device.  With ``own`` the
+        outputs are the caller's; else a replay's outputs are the graph's
+        own tensors, valid until the next call (a copy queued behind the
+        replay on the current stream reads them first)."""
+        if self.x is None or tree_layout(x) != tree_layout(self.x):
+            self.x = torch.empty_like(x)
+            self._drop()
+        self.x.copy_(x)
+        if not self.capture:
+            y, aux, same = self._body()
+            self._settle(same)
+            if not same:
+                self._drop()
+            return y, aux
+        if self._graph is None:
+            if not self._ready:
+                return self._eager()
+            self._capture()
+        self._graph.replay()
+        self.replays += 1
+        kernels.count_replay(self._record)
+        if own:
+            return tree_map(lambda t: t.clone() if torch.is_tensor(t) else t,
+                            self._out)
+        return self._out
+
+    def _eager(self):
+        """The first block at a layout: eagerly, on the side stream."""
+        current = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(current)
+        with torch.cuda.stream(self._side):
+            y, aux, same = self._body()
+        current.wait_stream(self._side)
+        # tensors made on the side stream and used on this one
+        for t in tree_leaves((y, aux, self.state)):
+            if torch.is_tensor(t):
+                t.record_stream(current)
+        self._settle(same)
+        self._ready = same
+        return y, aux
+
+    def _settle(self, same: bool):
+        """Raise when the step changed its state's layout on this block and
+        on the one before: such a step would run eagerly on every block."""
+        if not same and self._unsettled:
+            raise RuntimeError("the block step gives its state a new layout on "
+                               "every block: it cannot be captured")
+        self._unsettled = not same
+
+    def _capture(self):
+        """Capture the step as a CUDA graph in a pool of its own.  The
+        capture is thread-local: other threads may use the card meanwhile;
+        the cyclic garbage collector waits until it ends.
+        (``torch.cuda.graph`` would also synchronise the device, collect
+        garbage and empty the allocator's cache first.)"""
+        graph = torch.cuda.CUDAGraph()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        with (torch.cuda.stream(self._side), kernels.recording() as record,
+              _gc_paused()):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                y, aux, same = self._body()
+            except BaseException:
+                with contextlib.suppress(Exception):   # the step's error is the one to see
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        if not same:
+            raise RuntimeError("the step's state layout changed during capture")
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.pool_mib = (torch.cuda.memory_reserved(self.device) - reserved) / 2 ** 20
+        self.captures += 1
+        self._graph, self._out, self._record = graph, (y, aux), record
+
+
 class Program:
     """A chain planned against (in_spec, block, batch_shape) on one device:
-    owns the streaming state and runs one block per dispatch.
+    owns the streaming state and runs one block per dispatch through its
+    ``GraphStep`` (``step``): on a card a CUDA graph replay from the second
+    block on; ``graph=False`` keeps the step eager there (to hold the
+    replay against it).
 
     ``params_lock`` is held while a dispatch rebuilds the params; a caller
     that changes several of the chain's parameters from another thread
     holds it across the change, so that no block sees half of it."""
 
     def __init__(self, chain: Stage, in_spec, block: int, batch_shape=(),
-                 device="cuda"):
+                 device="cuda", graph: bool = True):
         self.device = resolve_device(device)
         self.chain = chain
         self.in_spec = in_spec
         self.block = block
         self.batch_shape = tuple(batch_shape)
+        self.graph = graph
         self.out_spec, self.out_block = chain.plan(in_spec, block)
         self._in_complex = bool(in_spec.format.is_complex)
         self.params_lock = threading.RLock()
         self._params_cache = chain.params(self.device)
         self._params_ver = chain.params_version()
-        self.state = chain.init_state(self.batch_shape, self.device)
+        self.step = GraphStep(chain.apply,
+                              chain.init_state(self.batch_shape, self.device),
+                              self.device, capture=graph)
         # structural keys at build time: rebuild() matches the OLD states
         # to the new workers through these, never through post-surgery
         # worker objects (whose states they are not)
         self._state_keys = (
             [(w.label, w.signature()) for w in chain.workers]
             if isinstance(chain, Chain) else [])
+
+    @property
+    def state(self):
+        """The streaming state (the step's static tensors)."""
+        return self.step.state
+
+    @state.setter
+    def state(self, state):
+        self.step.set_state(state)
 
     def _params(self):
         """Current params, rebuilt only when a setter bumped the chain's
@@ -366,7 +621,9 @@ class Program:
         results' copies into pinned host memory start at once; fetch()
         waits for them."""
         xt = as_input_block(x, self.block, self._in_complex, self.device)
-        self.state, y, aux = self.chain.apply(self.state, self._params(), xt)
+        with self.params_lock:
+            self.step.set_params(self._params())
+        y, aux = self.step(xt, own=not to_host)
         return start_fetch(y, aux, self.device, to_host), None
 
     def fetch(self, pending: Pending, _unused=None):
@@ -400,7 +657,7 @@ class Program:
         if keep_state and isinstance(self.chain, Chain):
             old = dict(zip(self._state_keys, self.state))
         self.__init__(self.chain, self.in_spec, self.block, self.batch_shape,
-                      device=self.device)
+                      device=self.device, graph=self.graph)
         if old and isinstance(self.chain, Chain):
             self.state = tuple(
                 old.get((w.label, w.signature()), s)

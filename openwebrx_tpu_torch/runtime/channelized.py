@@ -17,7 +17,10 @@ stride int32 (n, B/200))`` for ADPCM or int16 audio (n, B) otherwise, and
 ``"wfm.rds_tap.rds"`` (n, B_rds) complex64 in WFM mode.  Params
 (fine shifts, squelch levels, passbands, NR thresholds) are rebuilt and
 uploaded only after a control changed; a control may change from another
-thread than the one dispatching.
+thread than the one dispatching.  As the reference compiles its step once,
+the bank's step (PFB, slot gather, chain) runs over static buffers
+(``runtime/chain.py`` ``GraphStep``): on a card every block from the second
+on is one CUDA graph replay.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from openwebrx_tpu_torch.models.stages import block_requirement, plan_block_size
 from openwebrx_tpu_torch.ops import channelizer as pfb
 from openwebrx_tpu_torch.ops.formats import Format, StreamSpec
 from openwebrx_tpu_torch.runtime.chain import (
-    Pending, as_input_block, digest, finish_fetch, start_fetch)
+    GraphStep, Pending, as_input_block, digest, finish_fetch, start_fetch)
 
 
 class ChannelizedBank:
@@ -45,7 +48,7 @@ class ChannelizedBank:
                  audio_rate: float = 12000.0, compression: str = "none",
                  taps_per_phase: int = 16, target_seconds: float = 0.1,
                  block: int | None = None, capacity: int | None = None,
-                 delivery_stride: int = 1, device="cuda"):
+                 delivery_stride: int = 1, device="cuda", graph: bool = True):
         self.device = resolve_device(device)
         self.in_rate = float(in_rate)
         self.m = int(m)
@@ -99,9 +102,22 @@ class ChannelizedBank:
         # change made during a rebuild is lost
         self._lock = threading.RLock()
         self._prototype = torch.as_tensor(self.prototype, device=self.device)
-        self.state = (pfb.channelizer_init(self.m, taps_per_phase,
-                                           device=self.device),
-                      self.chain.init_state((n,), self.device))
+        # the block step over static buffers: a CUDA graph replay on a
+        # card from the second block on (graph=False keeps it eager)
+        self.step = GraphStep(self._raw_step,
+                              (pfb.channelizer_init(self.m, taps_per_phase,
+                                                    device=self.device),
+                               self.chain.init_state((n,), self.device)),
+                              self.device, capture=graph)
+
+    @property
+    def state(self):
+        """(PFB tail, chain state): the step's static tensors."""
+        return self.step.state
+
+    @state.setter
+    def state(self, state):
+        self.step.set_state(state)
 
     def _raw_step(self, state, params, x):
         tail, chain_state = state
@@ -256,7 +272,9 @@ class ChannelizedBank:
         results' copies into pinned host memory start at once; fetch()
         waits for them."""
         x = self._as_block(iq_block)
-        self.state, y, aux = self._raw_step(self.state, self._params(), x)
+        with self._lock:
+            self.step.set_params(self._params())
+        y, aux = self.step(x, own=not to_host)
         return start_fetch(y, aux, self.device, to_host), None
 
     def feed_dispatch(self, xdev, to_host: bool = True):

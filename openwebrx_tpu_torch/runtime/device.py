@@ -17,6 +17,12 @@ What differs from the reference is mechanism only:
 * A block goes to the card once, through a pinned staging buffer taken
   fresh for that block; uint8 and int16 wire samples go up as they are and
   become float on the card.  Every program gets that one device block.
+* Every bank and program runs its block step over static buffers
+  (``runtime/chain.py`` ``GraphStep``, the counterpart of the reference's
+  jitted step): on a card its first block runs eagerly, its second is
+  captured as a CUDA graph and every later block is one replay.  A
+  capture or replay failure raises; the runtime never asks for the eager
+  step (``graph=False``), which only comparisons reach.
 * Every program is dispatched without fetching; then the copies of all of
   the block's results (waterfall, every bank, every block of a
   delivery-stride batch) start into pinned host memory behind ONE CUDA

@@ -28,6 +28,7 @@ from openwebrx_tpu_torch.ops import squelch as tsq
 from openwebrx_tpu_torch.ops.fold import polyphase_fold, polyphase_fold_plain
 from openwebrx_tpu_torch.runtime.device import PORT_HOST, DeviceRuntime
 from openwebrx_tpu_torch.sources.file import SignalSource
+import torch_graph_scenes as gs
 
 
 @pytest.fixture
@@ -486,6 +487,207 @@ class TestOnCard:
             assert len(events) == 1 and None not in events
             assert len(pend["bank_pending"].get("pfb:ssb", [])) == (6 if i == 5 else 0)
             rt._complete_block(pend)
+
+
+@pytest.fixture
+def no_plain(monkeypatch):
+    """Every plain version of a kernel fails a case that hands it a CUDA
+    tensor (as tests/torch_ref_device.py's ``device`` fixture)."""
+    import importlib
+    from torch_ref_device import PLAIN_VERSIONS, _refusing_cuda
+    reached = []
+    for module, name in PLAIN_VERSIONS:
+        mod = importlib.import_module(f"openwebrx_tpu_torch.{module}")
+        monkeypatch.setattr(mod, name, _refusing_cuda(f"{module}.{name}",
+                                                      getattr(mod, name), reached))
+    yield
+    assert not reached, f"plain versions reached on the card: {reached}"
+
+
+def _replay_and_eager(scene):
+    """``scene(graph)`` → (outputs, captures), run with the graph and then
+    with the eager step on the card, each with every kernel count set to 0
+    → {graph: (outputs, captures, launches)}."""
+    runs = {}
+    for graph in (True, False):
+        gs.zero_launches()
+        out, captures = scene(graph)
+        torch.cuda.synchronize()
+        runs[graph] = (out, captures, gs.launch_counts())
+    return runs
+
+
+def _assert_replay_is_eager(runs, captures, kernels_run):
+    """Bit for bit the same outputs, ``captures`` graphs captured (none by
+    the eager step), the same launches kernel by kernel, and every kernel
+    of ``kernels_run`` launched."""
+    (g_out, g_cap, g_launch), (e_out, e_cap, e_launch) = runs[True], runs[False]
+    assert len(g_out) == len(e_out) > 0
+    for b, (g, e) in enumerate(zip(g_out, e_out)):
+        gs.assert_same(g, e, b)
+    assert g_cap == captures and all(c == 0 for c in e_cap), (g_cap, e_cap)
+    assert g_launch == e_launch, (g_launch, e_launch)
+    assert all(g_launch[k] > 0 for k in kernels_run), g_launch
+
+
+class TestGraphStepOnCard:
+    """Each block of a bank or program on the card is one CUDA graph
+    replay from its second block on, held bit for bit to the eager step
+    (``graph=False``) over the same blocks and control changes; one
+    capture per layout, one more per structural change; the replays'
+    launch counts equal the eager step's, kernel by kernel; no plain
+    version runs.  Scenes: tests/torch_graph_scenes.py."""
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("mode", sorted(gs.BANK_MODES))
+    def test_bank_replay_is_the_eager_step(self, cuda_device, no_plain, mode):
+        def scene(graph):
+            out, _, bank = gs.run_bank_scene(mode, cuda_device, graph)
+            return out, [bank.step.captures]
+        runs = _replay_and_eager(scene)
+        kernels_run = {"fold.cu", "squelch.cu"} | (
+            {"iir.cu"} if mode in ("nfm", "am", "wfm") else set()) | (
+            {"agc.cu"} if mode != "wfm" else set())
+        _assert_replay_is_eager(runs, [1], kernels_run)
+        # each control change reached the replayed output (a squelch after
+        # its hang), against the same bank replayed without the changes
+        still, _, _ = gs.run_bank_scene(mode, cuda_device, True, events={})
+        _, slots = gs.make_bank(mode)
+        for b, (name, i) in gs.BANK_EVENTS.items():
+            slot, first = slots[min(i, len(slots) - 1)], b + gs.EFFECT_LAG.get(name, 0)
+            assert not np.array_equal(runs[True][0][first][0][slot],
+                                      still[first][0][slot]), (mode, name)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("path", sorted(gs.BANK_MODES) + ["waterfall"])
+    def test_replay_counts_are_the_kernels_that_ran(self, cuda_device, no_plain, path):
+        """The launches that replays add to the counts (recorded at the
+        capture) are held to what ran on the card: a profiler trace of the
+        replayed blocks holds each hand-written kernel as often as its
+        count says."""
+        if path == "waterfall":
+            step_of, fs, dials = gs.make_waterfall(cuda_device), gs.WF_FS, (300000.0,)
+        else:
+            step_of, _ = gs.make_bank(path, cuda_device)
+            fs, dials = gs.BANK_MODES[path][0], gs.BANK_MODES[path][4]
+        blocks = [gs.on(cuda_device, x) for x in gs.bank_blocks(
+            "usb" if path == "waterfall" else path, fs, dials, step_of.block, 6, seed=4)]
+        for x in blocks[:2]:            # the eager block; the capture, replayed
+            step_of.process(x)
+        gs.zero_launches()
+        _, _, ran = gs.traced(lambda: [step_of.process(x) for x in blocks[2:]])
+        counted = gs.launch_counts()
+        assert step_of.step.captures == 1 and step_of.step.replays == 5
+        assert ran == counted, (ran, counted)
+        assert sum(counted.values()) >= 4, counted
+
+    @pytest.mark.cuda
+    def test_capture_survives_a_collection_of_old_graphs(self, cuda_device, no_plain,
+                                                          monkeypatch):
+        """A bank whose graph is cyclic garbage when another step captures:
+        a garbage collection inside the capture would free that graph on the
+        capturing thread, which invalidates the capture; the capture holds
+        the collector off, and the old bank is freed after it."""
+        import gc
+        import weakref
+        from openwebrx_tpu_torch.runtime.chain import GraphStep
+        _, _, old = gs.run_bank_scene("usb", cuda_device, True, events={}, nblocks=3)
+        assert old.step.captures == 1
+        old.cycle = old                   # only the cyclic collector frees it
+        holder, freed = [old], weakref.ref(old)
+        del old
+        body = GraphStep._body
+
+        def collecting_body(self):
+            if torch.cuda.is_current_stream_capturing() and holder:
+                holder.clear()           # the old bank is garbage from here
+                threshold = gc.get_threshold()
+                gc.set_threshold(1, 1, 1)
+                try:
+                    [[] for _ in range(1000)]    # allocations that would collect
+                finally:
+                    gc.set_threshold(*threshold)
+            return body(self)
+
+        monkeypatch.setattr(GraphStep, "_body", collecting_body)
+        out, _, bank = gs.run_bank_scene("usb", cuda_device, True, events={}, nblocks=3)
+        torch.cuda.synchronize()
+        assert bank.step.captures == 1 and bank.step.replays == 2 and not holder
+        gc.collect()
+        assert freed() is None
+
+    @pytest.mark.cuda
+    def test_stride_batch_replay_is_the_eager_step(self, cuda_device, no_plain):
+        runs = _replay_and_eager(lambda graph: (lambda got, want, bank: (
+            got, [bank.step.captures]))(*gs.run_stride_scene(cuda_device, graph)))
+        _assert_replay_is_eager(runs, [1], {"fold.cu", "agc.cu", "squelch.cu"})
+        got = runs[True][0]
+        assert len(got) == 6
+        for a, b in zip(got, got[1:]):
+            assert not np.array_equal(a[0], b[0])
+
+    @pytest.mark.cuda
+    def test_compressed_waterfall_replay_is_the_eager_step(self, cuda_device, no_plain):
+        runs = _replay_and_eager(lambda graph: gs.run_waterfall_scene(cuda_device, graph))
+        _assert_replay_is_eager(runs, [1], {"adpcm_seq.cu"})
+
+    @pytest.mark.cuda
+    def test_dmr_program_replay_is_the_eager_step(self, cuda_device, no_plain):
+        runs = _replay_and_eager(lambda graph: gs.run_dv_scene(cuda_device, graph))
+        _assert_replay_is_eager(runs, [1], set())
+
+    @pytest.mark.cuda
+    def test_mode_switch_captures_again(self, cuda_device, no_plain):
+        runs = _replay_and_eager(lambda graph: gs.run_mode_switch_scene(cuda_device, graph))
+        _assert_replay_is_eager(runs, [1, 1], {"adpcm.cu", "agc.cu", "squelch.cu", "iir.cu"})
+
+    @pytest.mark.cuda
+    def test_psk31_secondary_replay_is_the_eager_step(self, cuda_device, no_plain):
+        def scene(graph):
+            got, captures = gs.run_secondary_scene(cuda_device, graph)
+            return [(np.int32(i), y, np.frombuffer(b"".join(p or []), np.uint8))
+                    for i, y, p in got], captures
+        runs = _replay_and_eager(scene)
+        # one capture per program: the first, and the one the growth built
+        _assert_replay_is_eager(runs, [1, 1], {"adpcm_seq.cu"})
+
+    @pytest.mark.cuda
+    def test_runtime_dispatches_every_bank_as_a_replay(self, cuda_device, no_plain):
+        """A DeviceRuntime with a listener, a service, a full-rate edge
+        dial and the waterfall, fed the same wire blocks with a retune, a
+        squelch and a bandpass change between them: every byte it delivers
+        equals the eager runtime's; each bank and the waterfall captured
+        once."""
+        def scene(graph):
+            rng = np.random.default_rng(0)
+            with gs.runtime_graph(graph):
+                rt = DeviceRuntime(_source([]), capacity=8, target_seconds=0.05,
+                                   host=PORT_HOST, fft_size=1024, device=cuda_device)
+                got = []
+                rt.subscribe_waterfall(lambda p: got.append(("wf", p)))
+                hs = [rt.open_channel("usb", 48_500.0),
+                      rt.open_channel("usb", 96_500.0, service=True),
+                      rt.open_channel("usb", 36_000.0)]       # a channel edge
+                for i, h in enumerate(hs):
+                    h.audio_cb = lambda wire, hd, i=i: got.append((i, bytes(wire)))
+                for b in range(12):
+                    if b == 3:
+                        hs[0].set_offset(49_000.0)
+                    if b == 5:
+                        hs[0].set_squelch(0.0)
+                    if b == 7:
+                        hs[2].set_bandpass(500.0, 1800.0)
+                    rt._process_block((rng.standard_normal((rt.block, 2)) * 0.05
+                                       ).astype(np.float32))
+            banks = [rt.banks[k] for k in sorted(rt.banks)]
+            steps = [getattr(b, "step", None) or b.program.step for b in banks]
+            steps.append(rt.fft_program.step)
+            return ([(np.frombuffer(str(k).encode(), np.uint8), np.frombuffer(v, np.uint8))
+                     for k, v in got], [st.captures for st in steps])
+        runs = _replay_and_eager(scene)
+        assert len(runs[True][1]) == 4            # pfbi:ssb, pfb:ssb, ssb, waterfall
+        _assert_replay_is_eager(runs, [1, 1, 1, 1], {"fold.cu", "agc.cu", "squelch.cu",
+                                                      "adpcm.cu", "adpcm_seq.cu"})
 
 
 WARM_UP_SCRIPT = """

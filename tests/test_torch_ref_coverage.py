@@ -237,6 +237,10 @@ HELD = {
 }
 
 CARRYING = sorted(set(CARRIED.values()))
+# the three multi-device files of HELD are carried again, under their own
+# case names, onto two or more cards over NCCL (cuda-marked, jax-free)
+MULTICARD = "test_torch_multicard.py"
+MULTICARD_HELD = ("test_cluster.py", "test_parallel.py", "test_pod.py")
 
 
 def _tree(path: Path) -> ast.Module:
@@ -311,7 +315,20 @@ def test_held_files_keep_their_cases(name):
     assert sorted(reference_cases(name)) == sorted(cases)
 
 
-@pytest.mark.parametrize("name", [*CARRYING, "torch_ref_device.py", "torch_ref_helpers.py"])
+@pytest.mark.parametrize("name", MULTICARD_HELD)
+def test_multicard_file_carries_every_multi_device_case(name):
+    """tests/test_torch_multicard.py holds every case of the multi-device
+    reference file under its own name, in an outer class named after it."""
+    assert name in HELD
+    tree = _tree(TESTS / MULTICARD)
+    outer = [n for n in tree.body if isinstance(n, ast.ClassDef)
+             and n.name == outer_class(name)]
+    assert len(outer) == 1, f"{MULTICARD} has no single class {outer_class(name)}"
+    assert sorted(_tests_of(outer[0].body)) == sorted(reference_cases(name))
+
+
+@pytest.mark.parametrize("name", [*CARRYING, "torch_ref_device.py", "torch_ref_helpers.py",
+                                  MULTICARD, "torch_graph_scenes.py"])
 def test_carried_files_import_no_jax(name):
     """The carried files run on the card's machine, which has no jax: no
     import of jax or of the JAX package (``openwebrx_tpu``)."""
