@@ -1150,7 +1150,7 @@ class ThreadedSide(RuntimeSide):
         deadline = time.perf_counter() + RT_DEADLINE_S
         self.rt.start()
         if self.built_at is None:
-            self.built_at = self.rt.kernels_built_at
+            self.built_at = span_time(self.rt, "kernels", "end")
         try:
             while self.rt.gauges["blocks"] < b0 + n:
                 check(time.perf_counter() < deadline, "threaded: the loop stalled")
@@ -1231,6 +1231,24 @@ def profile_side(torch, label, side, n, expect) -> dict:
     return {"blocks": ran, "kernel_events_per_block": len(events) / ran,
             "hand_written": ours, "busy_ms_per_block": busy / ran,
             "wall_ms_per_block": wall_ms / ran, "idle_share": 1.0 - busy / wall_ms}
+
+
+def capture_ms(step) -> float | None:
+    """A step's last capture, read from its ``capture`` span."""
+    if step.capture_span is None:
+        return None
+    metric, sid = step.capture_span
+    seconds = metric.seconds(sid)
+    return None if seconds is None else seconds * 1e3
+
+
+def span_time(rt, name: str, at: str, rid: int | None = None) -> float | None:
+    """``at`` ('start' or 'end') of the last span ``name`` in the runtime's
+    log (of request ``rid``, if given), or None."""
+    rec = rt.spans[name].records()
+    if rid is not None:
+        rec = rec[rec["id"] == rid]
+    return float(rec[at][-1]) if len(rec) else None
 
 
 def replay_ms(torch, step, iters=ALT_DEVICE_REPLAYS) -> float:
@@ -1388,7 +1406,7 @@ def alternate(torch, dev, smi, label, sides, expect, warm=ALT_WARM, n=ALT_BLOCKS
              if st._graph is not None and replays.get(id(st))]
     blocks = rec["graph"]["blocks"]
     device_ms = sum(replay_ms(torch, st) * replays[id(st)] / blocks for st in steps)
-    rec["graph"]["captures"] = [{"captures": st.captures, "capture_ms": st.capture_ms,
+    rec["graph"]["captures"] = [{"captures": st.captures, "capture_ms": capture_ms(st),
                                  "pool_mib": st.pool_mib} for st in steps]
     rec["device_ms_per_block"] = device_ms
     for r in (rec["eager"], rec["graph"]):
@@ -1827,8 +1845,9 @@ def full_width_paths(torch, dev, smi, paths, launches_by_path, alt):
     errors.check("threaded")
     blocks_t = sides[True].blocks
     built_at = sides[True].built_at
-    built_first = (built_at is not None and rtt.first_block_at is not None
-                   and built_at <= rtt.first_block_at)
+    first_block_at = span_time(rtt, "dispatch", "start", rid=0)
+    built_first = (built_at is not None and first_block_at is not None
+                   and built_at <= first_block_at)
     log(f"[threaded] {blocks_t} blocks through the loop thread; kernels.ALL built by "
         f"start() before the first block: {built_first}; gauges {rtt.gauges}")
     check(built_first, "threaded: kernels.ALL was not built before the first block")
@@ -3015,7 +3034,7 @@ def server_paths(torch, dev, smi, paths, launches_by_path):
             "profile_hand_written_per_block": {k: v / blocks_traced for k, v in hand.items()},
             "profile_idle_share": 1 - busy_ms(seen) / (SRV_ALT_PROFILE_S * 1e3),
             "device_ms_per_block": device_ms,
-            "captures": [{"captures": st.captures, "capture_ms": st.capture_ms,
+            "captures": [{"captures": st.captures, "capture_ms": capture_ms(st),
                           "pool_mib": st.pool_mib} for st in steps]})
         r = alt["graph" if graph else "eager"][-1]
         log(f"[server alt] {'G' if graph else 'E'} {smi}: {n_win} blocks; host ms a block "

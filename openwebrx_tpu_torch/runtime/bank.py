@@ -113,6 +113,14 @@ class ChannelBank:
     def n_active(self) -> int:
         return int(self._active.sum())
 
+    @property
+    def params_rebuilds(self) -> int:
+        return self.program.params_rebuilds
+
+    def params_epoch(self) -> tuple[int, bool]:
+        """(params rebuilds so far, whether a change waits for the next)."""
+        return self.program.params_epoch()
+
     def _push_params(self):
         self.chain.selector.shift.set_rate(-self._offsets / self.in_rate)
         self.chain.selector.squelch.set_level(self._squelch)

@@ -44,13 +44,13 @@ import contextlib
 import gc
 import hashlib
 import threading
-import time
 from math import gcd
 
 import numpy as np
 import torch
 
 from openwebrx_tpu_torch import kernels, resolve_device
+from openwebrx_tpu_torch.core.metrics import SpanLog
 
 
 def digest(arr) -> str:
@@ -400,9 +400,11 @@ class GraphStep:
     eager step, and a step that gives its state a new layout on two blocks
     in a row (which no graph could hold) raises too.  Without ``capture``,
     or on the CPU, the same step runs eagerly over the same buffers.  ``captures`` counts the graphs
-    captured and ``replays`` the blocks replayed; ``capture_ms`` and
-    ``pool_mib`` are the last capture's wall time and the device memory
-    its pool reserved."""
+    captured and ``replays`` the blocks replayed; the eager first block
+    and the capture are ``eager`` and ``capture`` spans in the log of the
+    span open on the calling thread (``SpanLog.current``: a runtime's
+    dispatch), ``capture_span`` the last capture's (span metric, span
+    id); ``pool_mib`` is the device memory its pool reserved."""
 
     def __init__(self, fn, state, device: torch.device, capture: bool = True):
         self.fn = fn
@@ -412,7 +414,7 @@ class GraphStep:
         self.params = None
         self.x = None
         self.captures = self.replays = 0
-        self.capture_ms = None
+        self.capture_span = None
         self.pool_mib = None
         self._params_src = None
         self._unsettled = False          # the last block changed the state's layout
@@ -483,7 +485,8 @@ class GraphStep:
             return y, aux
         if self._graph is None:
             if not self._ready:
-                return self._eager()
+                with SpanLog.current()["eager"]():
+                    return self._eager()
             self._capture()
         self._graph.replay()
         self.replays += 1
@@ -524,9 +527,8 @@ class GraphStep:
         garbage and empty the allocator's cache first.)"""
         graph = torch.cuda.CUDAGraph()
         reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        with (torch.cuda.stream(self._side), kernels.recording() as record,
-              _gc_paused()):
+        with (SpanLog.current()["capture"]() as span, torch.cuda.stream(self._side),
+              kernels.recording() as record, _gc_paused()):
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 y, aux, same = self._body()
@@ -537,7 +539,7 @@ class GraphStep:
             graph.capture_end()
         if not same:
             raise RuntimeError("the step's state layout changed during capture")
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.capture_span = (span.metric, span.sid)
         self.pool_mib = (torch.cuda.memory_reserved(self.device) - reserved) / 2 ** 20
         self.captures += 1
         self._graph, self._out, self._record = graph, (y, aux), record
@@ -567,6 +569,7 @@ class Program:
         self.params_lock = threading.RLock()
         self._params_cache = chain.params(self.device)
         self._params_ver = chain.params_version()
+        self.params_rebuilds = 0
         self.step = GraphStep(chain.apply,
                               chain.init_state(self.batch_shape, self.device),
                               self.device, capture=graph)
@@ -594,7 +597,13 @@ class Program:
             if v != self._params_ver:
                 self._params_cache = self.chain.params(self.device)
                 self._params_ver = v
+                self.params_rebuilds += 1
             return self._params_cache
+
+    def params_epoch(self) -> tuple[int, bool]:
+        """(params rebuilds so far, whether a change waits for the next)."""
+        with self.params_lock:
+            return self.params_rebuilds, self.chain.params_version() != self._params_ver
 
     def pack_input(self, x):
         """Host block → what one upload carries, validated: complex samples
@@ -656,8 +665,10 @@ class Program:
         old = {}
         if keep_state and isinstance(self.chain, Chain):
             old = dict(zip(self._state_keys, self.state))
+        rebuilds = self.params_rebuilds
         self.__init__(self.chain, self.in_spec, self.block, self.batch_shape,
                       device=self.device, graph=self.graph)
+        self.params_rebuilds = rebuilds + 1
         if old and isinstance(self.chain, Chain):
             self.state = tuple(
                 old.get((w.label, w.signature()), s)

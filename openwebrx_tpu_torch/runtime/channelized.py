@@ -97,6 +97,7 @@ class ChannelizedBank:
             self._chan = np.arange(n, dtype=np.int32)   # slot s ≡ channel s
         self._params_dirty = True
         self._params_cache = None
+        self.params_rebuilds = 0
         # the control setters (any thread) and the params rebuild of a
         # dispatch exclude each other: no block sees half a change, and no
         # change made during a rebuild is lost
@@ -254,7 +255,13 @@ class ChannelizedBank:
                                       device=self.device)
                 self._params_cache = (idx, self.chain.params(self.device))
                 self._params_dirty = False
+                self.params_rebuilds += 1
             return self._params_cache
+
+    def params_epoch(self) -> tuple[int, bool]:
+        """(params rebuilds so far, whether a change waits for the next)."""
+        with self._lock:
+            return self.params_rebuilds, self._params_dirty or self._params_cache is None
 
     # ------------------------------------------------------------- stream --
     def _as_block(self, iq) -> torch.Tensor:

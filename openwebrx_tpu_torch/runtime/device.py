@@ -39,7 +39,24 @@ What differs from the reference is mechanism only:
   when opened.  Channels, banks and the waterfall need nothing from it.
 * The loop's gauges (blocks, proc_block_ms, samples_per_s,
   realtime_factor) go to ``core.metrics`` as ``device.<id>.<name>``, as
-  in the reference, and are kept in ``DeviceRuntime.gauges`` too.
+  in the reference, and are kept in ``DeviceRuntime.gauges`` too;
+  ``proc_block_ms`` is the last block's own time, its dispatch and its
+  completion.
+* Spans: the runtime keeps a log of timed spans (``core.metrics``
+  ``SpanLog``, registered as ``device.<id>.span.<name>``; ``spans``),
+  recorded where the work happens.  A block's are ``read`` (the source's
+  read that returned it, or one that timed out), ``dispatch`` (with
+  ``upload``, and each block step's ``eager`` first block and
+  ``capture``), ``hold`` (from the end of its dispatch until the loop
+  takes it off its queue; caused by the read that ended it) and
+  ``complete`` (with ``fetch``, the wait on its one event, and
+  ``deliver``), each with the block's number; a control call's are
+  ``control`` (with ``lock``, the wait on the runtime's lock) and
+  ``apply`` (from its return to the start of the dispatch of the first
+  block whose step runs with it), each with the change's number; set-up's
+  are ``build``, ``bank`` and ``kernels``.  While a torch.profiler
+  session records, every span but ``hold`` and ``apply`` is also an
+  ``owrx.<name>`` range of its trace.
 
 A source is duck-typed: the runtime uses its ``id``, ``get_sample_rate()``,
 ``block_size``, ``start()`` and ``read_block(timeout)`` (a (n,) complex
@@ -50,7 +67,9 @@ from __future__ import annotations
 
 import base64
 import concurrent.futures
+import functools
 import importlib
+import itertools
 import json
 import logging
 import math
@@ -65,7 +84,7 @@ import numpy as np
 import torch
 
 from openwebrx_tpu_torch import kernels, resolve_device
-from openwebrx_tpu_torch.core.metrics import Metrics
+from openwebrx_tpu_torch.core.metrics import Metrics, SpanLog, current_span
 from openwebrx_tpu_torch.models.analog import WFm
 from openwebrx_tpu_torch.models.digital_voice import DV_DECODERS, DV_FACTORY
 from openwebrx_tpu_torch.models.receiver import (
@@ -119,6 +138,12 @@ HOST_NAMES = {
     "NxdnDecoder": "digimodes.nxdn",
     "RdsDecoder": "digimodes.rds", "RdsParser": "services.toolbox",
 }
+
+# The runtime's span names (``DeviceRuntime.spans``) → their outcomes
+RUNTIME_SPANS = {"build": (), "bank": (), "kernels": (),
+                 "read": ("block", "timeout"), "dispatch": (), "upload": (),
+                 "eager": (), "capture": (), "hold": (), "complete": (), "fetch": (),
+                 "deliver": (), "control": (), "lock": (), "apply": ()}
 
 
 class _PortHost:
@@ -752,6 +777,61 @@ class DigitalVoiceHandle:
         self.pipeline.close()
 
 
+def _inside(metric) -> bool:
+    """Whether this thread is inside a span of ``metric``."""
+    span = current_span()
+    while span is not None:
+        if span.metric is metric:
+            return True
+        span = span.prev
+    return False
+
+
+def _control(method):
+    """A listener's control call, on its ``ChannelHandle`` or on the
+    runtime: a ``control`` span with a change number of its own, after
+    which the change waits for the first block whose step of the
+    listener's bank runs with it (``DeviceRuntime._changed``).  A control
+    call made inside another is part of it."""
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        rt = self if isinstance(self, DeviceRuntime) else self.runtime
+        control = rt.spans["control"]
+        if _inside(control):
+            return method(self, *args, **kwargs)
+        with control(rid=next(rt._change_ids), parent=-1) as span:
+            out = method(self, *args, **kwargs)
+        handle = next((h for h in (out, self, *args) if isinstance(h, ChannelHandle)), None)
+        if handle is not None:
+            rt._changed(span, handle)
+        return out
+    return call
+
+
+class _ControlLock:
+    """The runtime's reentrant lock; a control call's wait for it is a
+    ``lock`` span."""
+
+    __slots__ = ("_lock", "_wait", "_control")
+
+    def __init__(self, spans: SpanLog):
+        self._lock = threading.RLock()
+        self._wait, self._control = spans["lock"], spans["control"]
+
+    def __enter__(self):
+        span = current_span()
+        if span is not None and span.metric is self._control:
+            with self._wait():
+                self._lock.acquire()
+        else:
+            self._lock.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+        return False
+
+
 class ChannelHandle:
     """A listener's handle on one bank slot."""
 
@@ -782,6 +862,7 @@ class ChannelHandle:
     def bank(self):
         return self.runtime.banks[self.bucket_key]
 
+    @_control
     def set_offset(self, offset_hz: float):
         if self.slot is None:
             return
@@ -798,18 +879,22 @@ class ChannelHandle:
         if new_slot is not None:
             self.slot = new_slot
 
+    @_control
     def set_squelch(self, level_db: float):
         if self.slot is not None:
             self.bank.set_squelch(self.slot, level_db)
 
+    @_control
     def set_bandpass(self, low_hz: float, high_hz: float):
         if self.slot is not None:
             self.bank.set_bandpass(self.slot, low_hz, high_hz)
 
+    @_control
     def set_nr(self, threshold_db: float):
         if self.slot is not None:
             self.bank.set_nr(self.slot, threshold_db)
 
+    @_control
     def set_mode(self, mode: str, offset_hz: float | None = None):
         """Mode switch = move to another bank."""
         self._rds = None
@@ -837,69 +922,79 @@ class DeviceRuntime:
                  pfb_capacity: int | None = None,
                  service_delivery_seconds: float = 0.3, host=None,
                  device="cuda"):
-        self.device = resolve_device(device)
-        self.host = PORT_HOST if host is None else host
-        # background service results are delivered in batches of about
-        # this much signal (delivery_stride of the 'pfb:' banks)
-        self.service_delivery_seconds = float(service_delivery_seconds)
-        # `capacity` sizes the full-rate banks; `pfb_capacity` the
-        # filterbank banks, whose slots cost a channel-rate row each
-        self.pfb_capacity = pfb_capacity
-        # blocks in flight between dispatch and completion
-        self.pipeline_depth = max(1, int(pipeline_depth))
-        self.fft_compression = fft_compression
-        self.source = source
-        self.audio_rate = audio_rate
-        self.compression = compression
-        self.capacity = capacity
-        self.target_seconds = target_seconds
-        self.in_rate = source.get_sample_rate()
-        self.banks: dict[str, ChannelBank | ChannelizedBank] = {}
-        self._pfbi_infeasible: set[str] = set()
-        self._pfb_m: dict[str, int] = {}
-        self.handles: list[ChannelHandle] = []
-        self.secondary_handles: list = []     # SecondaryBank/Iq/DV feeders
-        self.secondary_banks: dict[str, SecondaryBank] = {}
-        self.waterfall_subscribers: list = []
-        self._lock = threading.RLock()
-        self._running = False
-        self._thread: threading.Thread | None = None
-        self.gauges = {"blocks": 0, "proc_block_ms": 0.0,
-                       "samples_per_s": 0.0, "realtime_factor": 0.0}
-        self.kernels_built_at: float | None = None
-        self.first_block_at: float | None = None
+        self.spans = SpanLog(f"device.{source.id}", RUNTIME_SPANS)
+        with self.spans["build"](parent=-1):
+            self.device = resolve_device(device)
+            self.host = PORT_HOST if host is None else host
+            # background service results are delivered in batches of about
+            # this much signal (delivery_stride of the 'pfb:' banks)
+            self.service_delivery_seconds = float(service_delivery_seconds)
+            # `capacity` sizes the full-rate banks; `pfb_capacity` the
+            # filterbank banks, whose slots cost a channel-rate row each
+            self.pfb_capacity = pfb_capacity
+            # blocks in flight between dispatch and completion
+            self.pipeline_depth = max(1, int(pipeline_depth))
+            self.fft_compression = fft_compression
+            self.source = source
+            self.audio_rate = audio_rate
+            self.compression = compression
+            self.capacity = capacity
+            self.target_seconds = target_seconds
+            self.in_rate = source.get_sample_rate()
+            self.banks: dict[str, ChannelBank | ChannelizedBank] = {}
+            self._pfbi_infeasible: set[str] = set()
+            self._pfb_m: dict[str, int] = {}
+            self.handles: list[ChannelHandle] = []
+            self.secondary_handles: list = []     # SecondaryBank/Iq/DV feeders
+            self.secondary_banks: dict[str, SecondaryBank] = {}
+            self.waterfall_subscribers: list = []
+            self._lock = _ControlLock(self.spans)
+            self._running = False
+            self._thread: threading.Thread | None = None
+            self.gauges = {"blocks": 0, "proc_block_ms": 0.0,
+                           "samples_per_s": 0.0, "realtime_factor": 0.0}
+            self._gauges = None               # their registry entries, once the loop runs
+            self._n_dispatch = 0              # blocks dispatched: the next block's number
+            # id(dispatched block) → (its number, its dispatch's start and end)
+            self._inflight: dict[int, tuple] = {}
+            self._cause = -1                  # the loop's last read (its span id)
+            self._change_ids = itertools.count()
+            # changes whose bank's step has not yet run with them:
+            # (change, its control span, its return, bank, rebuilds, block)
+            self._changes: list[tuple] = []
+            self._changes_lock = threading.Lock()
 
-        # ONE device block must satisfy every mode bucket's chain (plus the
-        # waterfall, which accepts any block): lcm of the bucket
-        # requirements at this rate
-        spec = StreamSpec(Format.COMPLEX_FLOAT, self.in_rate)
-        req = 1
-        want = max(1, int(round(self.in_rate * target_seconds)))
-        self.available_buckets = set()
-        for bucket_mode in set(BUCKET_CHAIN_MODE.values()):
-            try:
-                proto = ClientDemodulatorChain(self.in_rate, audio_rate,
-                                               bucket_mode, compression)
-            except ValueError:
-                # mode infeasible at this device rate (WFM's fixed 250 kHz
-                # IF above the device rate): not offered
-                continue
-            r = block_requirement(proto, spec)
-            # only chains with a requirement near the latency target set
-            # the device cadence; a long chain accumulates device chunks
-            # inside its bank (ChannelBank.feed_dispatch)
-            if r <= 2 * want:
-                req = req * r // gcd(req, r)
-            self.available_buckets.add(
-                next(b for b, m in BUCKET_CHAIN_MODE.items() if m == bucket_mode))
-        # floor-round toward the latency target (never below one requirement)
-        self.block = max(req, (want // req) * req)
+            # ONE device block must satisfy every mode bucket's chain (plus the
+            # waterfall, which accepts any block): lcm of the bucket
+            # requirements at this rate
+            spec = StreamSpec(Format.COMPLEX_FLOAT, self.in_rate)
+            req = 1
+            want = max(1, int(round(self.in_rate * target_seconds)))
+            self.available_buckets = set()
+            for bucket_mode in set(BUCKET_CHAIN_MODE.values()):
+                try:
+                    proto = ClientDemodulatorChain(self.in_rate, audio_rate,
+                                                   bucket_mode, compression)
+                except ValueError:
+                    # mode infeasible at this device rate (WFM's fixed 250 kHz
+                    # IF above the device rate): not offered
+                    continue
+                r = block_requirement(proto, spec)
+                # only chains with a requirement near the latency target set
+                # the device cadence; a long chain accumulates device chunks
+                # inside its bank (ChannelBank.feed_dispatch)
+                if r <= 2 * want:
+                    req = req * r // gcd(req, r)
+                self.available_buckets.add(
+                    next(b for b, m in BUCKET_CHAIN_MODE.items() if m == bucket_mode))
+            # floor-round toward the latency target (never below one requirement)
+            self.block = max(req, (want // req) * req)
 
-        self.fft_chain = FftChain(fft_size, fft_fps,
-                                  compress=(fft_compression == "adpcm"))
-        self.fft_program = Program(self.fft_chain, spec, self.block,
-                                   device=self.device)
-        source.block_size = self.block
+            self.fft_chain = FftChain(fft_size, fft_fps,
+                                      compress=(fft_compression == "adpcm"))
+            self.fft_program = Program(self.fft_chain, spec, self.block,
+                                       device=self.device)
+            source.block_size = self.block
 
     # -- channels ---------------------------------------------------------
     def _get_bank(self, key: str) -> ChannelBank:
@@ -911,11 +1006,12 @@ class DeviceRuntime:
                 bucket = key.split(":", 1)[-1]
                 # WFM listeners get HD audio (48 kHz)
                 audio_rate = 48000.0 if bucket == "wfm" else self.audio_rate
-                bank = ChannelBank(self.in_rate, BUCKET_CHAIN_MODE[bucket],
-                                   capacity=self.capacity,
-                                   audio_rate=audio_rate,
-                                   compression="none" if service else self.compression,
-                                   block=self.block, device=self.device)
+                with self.spans["bank"]():
+                    bank = ChannelBank(self.in_rate, BUCKET_CHAIN_MODE[bucket],
+                                       capacity=self.capacity,
+                                       audio_rate=audio_rate,
+                                       compression="none" if service else self.compression,
+                                       block=self.block, device=self.device)
                 self.banks[key] = bank
             return bank
 
@@ -966,15 +1062,16 @@ class DeviceRuntime:
                     stride = max(1, int(round(self.service_delivery_seconds
                                               / self.target_seconds)))
                     compression = "none"
-                bank = ChannelizedBank(
-                    self.in_rate, m,
-                    mode=BUCKET_CHAIN_MODE[bucket],
-                    audio_rate=(48000.0 if bucket == "wfm"
-                                else self.audio_rate),
-                    compression=compression, block=self.block,
-                    capacity=min(m, self.pfb_capacity
-                                 or max(64, self.capacity)),
-                    delivery_stride=stride, device=self.device)
+                with self.spans["bank"]():
+                    bank = ChannelizedBank(
+                        self.in_rate, m,
+                        mode=BUCKET_CHAIN_MODE[bucket],
+                        audio_rate=(48000.0 if bucket == "wfm"
+                                    else self.audio_rate),
+                        compression=compression, block=self.block,
+                        capacity=min(m, self.pfb_capacity
+                                     or max(64, self.capacity)),
+                        delivery_stride=stride, device=self.device)
                 if interactive and bank.chunk_ratio > 2:
                     # the channel-rate chain would accumulate > 2 device
                     # blocks a dispatch: too much latency for a listener;
@@ -1014,6 +1111,7 @@ class DeviceRuntime:
         bank.set_bandpass(slot, lo, hi)
         return ("pfbi:" if interactive else "pfb:") + bucket, slot
 
+    @_control
     def open_channel(self, mode: str, offset_hz: float = 0.0,
                      service: bool = False) -> ChannelHandle:
         """service=True → raw int16 audio (choppers, recorders); otherwise
@@ -1160,6 +1258,7 @@ class DeviceRuntime:
             if handle in self.secondary_handles:
                 self.secondary_handles.remove(handle)
 
+    @_control
     def release_channel(self, handle: ChannelHandle):
         with self._lock:
             if handle in self.handles:
@@ -1167,6 +1266,7 @@ class DeviceRuntime:
                 if handle.slot is not None:
                     self.banks[handle.bucket_key].remove_channel(handle.slot)
 
+    @_control
     def switch_mode(self, handle: ChannelHandle, mode: str,
                     offset_hz: float | None = None):
         is_pfb = handle.bucket_key.startswith(("pfb:", "pfbi:"))
@@ -1220,12 +1320,12 @@ class DeviceRuntime:
     def build_kernels(self) -> float:
         """On a card, build every kernel of the port (one nvcc each, all
         at once; a library already built is reused) so that none compiles
-        inside a streamed block; returns the seconds it took."""
+        inside a streamed block (a ``kernels`` span); returns the seconds
+        it took."""
         if self.device.type != "cuda":
             return 0.0
-        seconds = kernels.build_all()
-        self.kernels_built_at = time.perf_counter()
-        return seconds
+        with self.spans["kernels"](parent=-1):
+            return kernels.build_all()
 
     def start(self):
         with self._lock:
@@ -1252,7 +1352,7 @@ class DeviceRuntime:
         ``pipeline_depth`` blocks are."""
         pending.append(self._dispatch_block(block))
         if len(pending) >= self.pipeline_depth:
-            self._complete_block(pending.popleft())
+            self._finish(pending.popleft(), self._cause)
 
     def _loop(self):
         # a new thread's current device is device 0, whatever the runtime
@@ -1261,18 +1361,16 @@ class DeviceRuntime:
             torch.cuda.set_device(self.device)
         m = Metrics.shared()
         prefix = f"device.{self.source.id}"
-        m_blocks = m.counter(f"{prefix}.blocks")
-        m_rate = m.direct(f"{prefix}.samples_per_s")
-        m_proc = m.direct(f"{prefix}.proc_block_ms")
-        m_rt = m.direct(f"{prefix}.realtime_factor")
-        rate = float(self.source.get_sample_rate() or 0)
-        ema_ms = None
+        self._gauges = (m.counter(f"{prefix}.blocks"),
+                        {name: m.direct(f"{prefix}.{name}")
+                         for name in ("proc_block_ms", "samples_per_s", "realtime_factor")})
+        read = self.spans["read"]
         pending = deque()
 
         def drain_all():
             while pending:
                 try:
-                    self._complete_block(pending.popleft())
+                    self._finish(pending.popleft(), self._cause)
                 except Exception:
                     logger.exception("device %s block completion failed",
                                      self.source.id)
@@ -1280,11 +1378,16 @@ class DeviceRuntime:
         while self._running:
             # short timeout while blocks are in flight: a paused stream
             # must not hold completed results for the idle timeout
-            block = self.source.read_block(timeout=0.06 if pending else 1.0)
+            with read(rid=self._n_dispatch, parent=-1) as span:
+                block = self.source.read_block(timeout=0.06 if pending else 1.0)
+                if block is None:
+                    span.rid, span.outcome = -1, "timeout"
+                else:
+                    span.outcome = "block"
+            self._cause = span.sid
             if block is None:
                 drain_all()
                 continue
-            t0 = time.perf_counter()
             try:
                 self._pump(block, pending)
             except Exception:
@@ -1292,26 +1395,39 @@ class DeviceRuntime:
                                  self.source.id)
                 pending.clear()
                 continue
-            dt_ms = (time.perf_counter() - t0) * 1e3
-            ema_ms = dt_ms if ema_ms is None else ema_ms * 0.9 + dt_ms * 0.1
-            g = self.gauges
-            g["blocks"] += 1
-            m_blocks.inc()
-            g["proc_block_ms"] = round(ema_ms, 3)
-            m_proc.set(g["proc_block_ms"])
-            if ema_ms > 0:
-                # smoothed, so one idle block reports no fantasy rate
-                g["samples_per_s"] = round(len(block) / (ema_ms / 1e3))
-                m_rate.set(g["samples_per_s"])
-                if rate:
-                    g["realtime_factor"] = round(
-                        len(block) / (ema_ms / 1e3) / rate, 2)
-                    m_rt.set(g["realtime_factor"])
         drain_all()
 
     def _process_block(self, block):
         """Synchronous dispatch + complete (tests and direct callers)."""
-        self._complete_block(self._dispatch_block(block))
+        self._finish(self._dispatch_block(block))
+
+    def _finish(self, pending: dict, cause: int = -1):
+        """Take a dispatched block off the loop's hands: its ``hold`` span
+        ends, caused by the read (span id) ``cause``; it completes inside a
+        ``complete`` span; the gauges take its own time, its dispatch and
+        its completion."""
+        b, t0, t1 = self._inflight.pop(id(pending), (-1, None, None))
+        if t1 is not None:
+            self.spans["hold"].record(t1, time.perf_counter(), b, cause)
+        with self.spans["complete"](rid=b, parent=-1) as span:
+            self._complete_block(pending)
+        if t1 is not None:
+            self._gauge(t1 - t0 + span.t1 - span.t0)
+
+    def _gauge(self, seconds: float):
+        """The gauges after a block that took ``seconds`` of its own."""
+        g = self.gauges
+        g["blocks"] += 1
+        g["proc_block_ms"] = round(seconds * 1e3, 3)
+        if seconds > 0:
+            g["samples_per_s"] = round(self.block / seconds)
+            if self.in_rate:
+                g["realtime_factor"] = round(self.block / seconds / self.in_rate, 2)
+        if self._gauges is not None:
+            blocks, direct = self._gauges
+            blocks.inc()
+            for name, metric in direct.items():
+                metric.set(g[name])
 
     def _upload(self, block) -> torch.Tensor:
         """One host→device transfer of an IQ block, shared by every
@@ -1319,57 +1435,109 @@ class DeviceRuntime:
         as they are, staged in pinned memory taken fresh for this block
         (PyTorch's host allocator keeps it until the copy is done) →
         (block,) complex64 on the device."""
-        host = torch.from_numpy(np.ascontiguousarray(
-            self.fft_program.pack_input(block)))
-        if self.device.type == "cuda":
-            staged = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-            staged.copy_(host)
-            x = staged.to(self.device, non_blocking=True)
-        else:
-            x = host.clone()          # the source may reuse its buffer
-        return as_input_block(x, self.block, True, self.device)
+        with self.spans["upload"]():
+            host = torch.from_numpy(np.ascontiguousarray(
+                self.fft_program.pack_input(block)))
+            if self.device.type == "cuda":
+                staged = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+                staged.copy_(host)
+                x = staged.to(self.device, non_blocking=True)
+            else:
+                x = host.clone()          # the source may reuse its buffer
+            return as_input_block(x, self.block, True, self.device)
 
     def _dispatch_block(self, block) -> dict:
-        with self._lock:
-            banks = {k: b for k, b in self.banks.items() if b.n_active}
-            handles = list(self.handles)
-            secondaries = list(self.secondary_handles)
-        if self.first_block_at is None:
-            self.first_block_at = time.perf_counter()
-        want_fft = bool(self.waterfall_subscribers)
-        xdev = (self._upload(block) if want_fft or banks or secondaries
-                else None)
-        # dispatch everything before fetching anything
-        fft_pending = ([self.fft_program.dispatch(xdev, to_host=False)[0]]
-                       if want_fft else [])
-        bank_pending = {}
-        for key, bank in banks.items():
-            pend = bank.feed_dispatch(xdev, to_host=False)
-            if pend is None:      # a long-chain bank still accumulating
-                continue
-            # a delivery-stride batch is (list of K pendings, K)
-            bank_pending[key] = pend[0] if isinstance(pend[1], int) else [pend[0]]
-        # every result of this block starts its copy behind ONE event
-        fetched = iter(start_fetches(
-            fft_pending + [p for pl in bank_pending.values() for p in pl],
-            self.device))
-        fft_pending = [next(fetched) for _ in fft_pending]
-        bank_pending = {k: [next(fetched) for _ in pl]
-                        for k, pl in bank_pending.items()}
-        # secondaries fetch their own results, on their own cadence, while
-        # the banks' copies are in flight
-        for sec in secondaries:
-            try:
-                sec.feed(xdev)
-            except Exception:
-                logger.exception("secondary %s failed", sec.mode)
-        return {"banks": banks, "handles": handles,
-                "fft_pending": fft_pending, "bank_pending": bank_pending}
+        n = self._n_dispatch
+        self._n_dispatch += 1
+        with self.spans["dispatch"](rid=n, parent=-1) as span:
+            with self._lock:
+                banks = {k: b for k, b in self.banks.items() if b.n_active}
+                handles = list(self.handles)
+                secondaries = list(self.secondary_handles)
+            want_fft = bool(self.waterfall_subscribers)
+            xdev = (self._upload(block) if want_fft or banks or secondaries
+                    else None)
+            # dispatch everything before fetching anything
+            fft_pending = ([self.fft_program.dispatch(xdev, to_host=False)[0]]
+                           if want_fft else [])
+            bank_pending = {}
+            for key, bank in banks.items():
+                pend = bank.feed_dispatch(xdev, to_host=False)
+                if pend is None:      # a long-chain bank still accumulating
+                    continue
+                # a delivery-stride batch is (list of K pendings, K)
+                bank_pending[key] = pend[0] if isinstance(pend[1], int) else [pend[0]]
+            self._settle(n, span.t0, banks)
+            # every result of this block starts its copy behind ONE event
+            fetched = iter(start_fetches(
+                fft_pending + [p for pl in bank_pending.values() for p in pl],
+                self.device))
+            fft_pending = [next(fetched) for _ in fft_pending]
+            bank_pending = {k: [next(fetched) for _ in pl]
+                            for k, pl in bank_pending.items()}
+            # secondaries fetch their own results, on their own cadence, while
+            # the banks' copies are in flight
+            for sec in secondaries:
+                try:
+                    sec.feed(xdev)
+                except Exception:
+                    logger.exception("secondary %s failed", sec.mode)
+            out = {"banks": banks, "handles": handles,
+                   "fft_pending": fft_pending, "bank_pending": bank_pending}
+        self._inflight[id(out)] = (n, span.t0, span.t1)
+        if len(self._inflight) > 64:        # blocks dispatched and completed elsewhere
+            del self._inflight[next(iter(self._inflight))]
+        return out
+
+    def _changed(self, span, handle: ChannelHandle):
+        """A control call (``span``) returned: its change waits for the
+        first block whose step of the handle's bank runs with it."""
+        bank = self.banks.get(handle.bucket_key) if handle.slot is not None else None
+        if bank is None:
+            return
+        rebuilds, waiting = bank.params_epoch()
+        # not waiting: the step of a dispatch already begun took it
+        at = -1 if waiting or not self._n_dispatch else self._n_dispatch - 1
+        with self._changes_lock:
+            self._changes.append((span.rid, span.sid, span.t1, bank, rebuilds + waiting, at))
+            del self._changes[:-1024]
+
+    def _settle(self, b: int, t0: float, active: dict):
+        """After block ``b``'s banks were dispatched (from ``t0``): an
+        ``apply`` span for each change whose bank's step has now run with
+        it, ending at ``t0``; a change whose bank no longer runs is
+        dropped."""
+        if not self._changes:
+            return
+        apply = self.spans["apply"]
+        with self._changes_lock:
+            waiting = []
+            for change in self._changes:
+                cid, sid, returned, bank, rebuilds, at = change
+                if at >= 0:
+                    apply.record(returned, returned, cid, sid, at)
+                elif bank.params_rebuilds >= rebuilds:
+                    apply.record(returned, max(returned, t0), cid, sid, b)
+                elif returned >= t0 or any(bank is x for x in active.values()):
+                    waiting.append(change)
+            self._changes = waiting
 
     def _complete_block(self, pending: dict):
+        # every result of the block waits on one event
+        with self.spans["fetch"]():
+            event = next((p.event for pl in [pending["fft_pending"],
+                                             *pending["bank_pending"].values()]
+                          for p in pl if p.event is not None), None)
+            if event is not None:
+                event.synchronize()
+        with self.spans["deliver"]():
+            self._deliver(pending)
+
+    def _deliver(self, pending: dict):
+        """A completed block's results, as numpy, to every subscriber and
+        listener (numpy, ADPCM framing, callbacks)."""
         banks = pending["banks"]
         handles = pending["handles"]
-
         # the waterfall, shared by every subscriber; compressed rows come
         # as (rows, padded bytes) uint8, the payload is a row's first
         # wire_bytes_per_row bytes

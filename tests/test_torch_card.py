@@ -582,6 +582,30 @@ class TestGraphStepOnCard:
         assert sum(counted.values()) >= 4, counted
 
     @pytest.mark.cuda
+    def test_the_eager_block_and_the_capture_are_spans_of_the_open_log(self, cuda_device,
+                                                                       no_plain):
+        """A step's eager first block and its capture are ``eager`` and
+        ``capture`` spans in the log of the span open on the thread, children
+        of it; the step keeps its capture's span."""
+        from openwebrx_tpu_torch.core.metrics import CODE_BITS, SpanLog
+        step_of, _ = gs.make_bank("usb", cuda_device)
+        fs, dials = gs.BANK_MODES["usb"][0], gs.BANK_MODES["usb"][4]
+        blocks = [gs.on(cuda_device, x) for x in gs.bank_blocks(
+            "usb", fs, dials, step_of.block, 3, seed=4)]
+        log = SpanLog("card-test", {"dispatch": ()})
+        for i, x in enumerate(blocks):
+            with log["dispatch"](rid=i):
+                step_of.process(x)
+        dispatch, eager, capture = (log[n].records() for n in ("dispatch", "eager", "capture"))
+        assert list(eager["id"]) == [0] and list(capture["id"]) == [1]
+        for rec, block in ((eager, 0), (capture, 1)):
+            assert rec["parent"][0] >> CODE_BITS == dispatch["seq"][block] - 1
+            assert dispatch["start"][block] <= rec["start"][0] <= rec["end"][0] \
+                <= dispatch["end"][block]
+        metric, sid = step_of.step.capture_span
+        assert metric is log["capture"] and metric.seconds(sid) > 0
+
+    @pytest.mark.cuda
     def test_capture_survives_a_collection_of_old_graphs(self, cuda_device, no_plain,
                                                           monkeypatch):
         """A bank whose graph is cyclic garbage when another step captures:

@@ -30,6 +30,8 @@ DATA_FILES = sorted(str(f.relative_to(REF)) for f in (REF / "data").rglob("*")
 
 DIVERGES = {
     "core/feature.py": "the 'core' probe checks that torch imports, not jax",
+    "core/metrics.py": "the span metric (SpanMetric, SpanLog): the device runtime's log of "
+                       "timed spans, shown as a summary of each span's count and seconds",
     "sdr.py": "get_device builds the port's DeviceRuntime on SdrService.device; "
               "warm runs the port's warm_up on a throwaway runtime a source",
     "web/settings.py": "the profile endpoint captures torch.profiler, not "

@@ -272,7 +272,8 @@ class TestProfileEndpoint:
 class TestMetrics:
     def test_device_gauges_on_metrics(self):
         """After a few blocks of the loop the runtime's gauges are on
-        /metrics (Prometheus) and /metrics.json, as the reference's are."""
+        /metrics (Prometheus) and /metrics.json, as the reference's are, and
+        its spans' counts and seconds beside them."""
         Config.get()["fft_compression"] = "none"
         asyncio.run(self._run())
 
@@ -288,10 +289,14 @@ class TestMetrics:
             lines = body.decode().splitlines()
             assert any(line.startswith("device_demo_realtime_factor ")
                        for line in lines)
+            assert "# TYPE device_demo_span_dispatch summary" in lines
+            assert any(line.startswith("device_demo_span_deliver_sum ") for line in lines)
             status, body, _ = await http(port, "GET", "/metrics.json")
             gauges = json.loads(body)["device"]["demo"]
             assert gauges["blocks"]["count"] >= 3
             assert gauges["realtime_factor"] > 0 and gauges["proc_block_ms"] > 0
+            assert gauges["span"]["dispatch"]["count"] >= 3
+            assert gauges["span"]["deliver"]["sum"] > 0
             await client.close()
 
 
