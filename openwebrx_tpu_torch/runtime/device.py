@@ -37,15 +37,26 @@ What differs from the reference is mechanism only:
   a namespace passed as ``host=``, which overrides them all.  A handle
   whose mode needs a name the host lacks raises ``LookupError`` naming it
   when opened.  Channels, banks and the waterfall need nothing from it.
-* The loop's gauges (blocks, proc_block_ms, samples_per_s,
-  realtime_factor) go to ``core.metrics`` as ``device.<id>.<name>``, as
-  in the reference, and are kept in ``DeviceRuntime.gauges`` too;
-  ``proc_block_ms`` is the last block's own time, its dispatch and its
-  completion.
+* The loop keeps up to ``pipeline_depth`` blocks in flight while the
+  source has the next block ready (a backlog, a source flat out), so the
+  host dispatches one block while the card runs the one before.  With
+  blocks in flight it polls the source without waiting; when the poll
+  finds nothing newer it completes the oldest block at once (its fetch
+  waits on the block's own event) and polls again, so a paced source's
+  block is delivered as soon as the card is done with it.  It waits on
+  the source only when nothing is in flight.
+* The loop's gauges (blocks, early_completions, proc_block_ms,
+  samples_per_s, realtime_factor) go to ``core.metrics`` as
+  ``device.<id>.<name>``, as in the reference, and are kept in
+  ``DeviceRuntime.gauges`` too; ``proc_block_ms`` is the last block's own
+  time, its dispatch and its completion; ``early_completions`` counts the
+  blocks completed because a poll found nothing newer.
 * Spans: the runtime keeps a log of timed spans (``core.metrics``
   ``SpanLog``, registered as ``device.<id>.span.<name>``; ``spans``),
   recorded where the work happens.  A block's are ``read`` (the source's
-  read that returned it, or one that timed out), ``dispatch`` (with
+  read: outcome ``block`` when it returned one, ``empty`` when a poll
+  with blocks in flight found none, ``timeout`` when a wait with none in
+  flight ran out), ``dispatch`` (with
   ``upload``, and each block step's ``eager`` first block and
   ``capture``), ``hold`` (from the end of its dispatch until the loop
   takes it off its queue; caused by the read that ended it) and
@@ -141,7 +152,7 @@ HOST_NAMES = {
 
 # The runtime's span names (``DeviceRuntime.spans``) → their outcomes
 RUNTIME_SPANS = {"build": (), "bank": (), "kernels": (),
-                 "read": ("block", "timeout"), "dispatch": (), "upload": (),
+                 "read": ("block", "timeout", "empty"), "dispatch": (), "upload": (),
                  "eager": (), "capture": (), "hold": (), "complete": (), "fetch": (),
                  "deliver": (), "control": (), "lock": (), "apply": ()}
 
@@ -951,7 +962,7 @@ class DeviceRuntime:
             self._lock = _ControlLock(self.spans)
             self._running = False
             self._thread: threading.Thread | None = None
-            self.gauges = {"blocks": 0, "proc_block_ms": 0.0,
+            self.gauges = {"blocks": 0, "early_completions": 0, "proc_block_ms": 0.0,
                            "samples_per_s": 0.0, "realtime_factor": 0.0}
             self._gauges = None               # their registry entries, once the loop runs
             self._n_dispatch = 0              # blocks dispatched: the next block's number
@@ -1354,6 +1365,19 @@ class DeviceRuntime:
         if len(pending) >= self.pipeline_depth:
             self._finish(pending.popleft(), self._cause)
 
+    def _complete_oldest(self, pending: deque, early: bool = False):
+        """Complete the oldest block in flight; ``early`` when the source
+        had nothing newer (not a later block pushing it out)."""
+        if early:
+            self.gauges["early_completions"] += 1
+            if self._gauges is not None:
+                _, counter, _ = self._gauges
+                counter.inc()
+        try:
+            self._finish(pending.popleft(), self._cause)
+        except Exception:
+            logger.exception("device %s block completion failed", self.source.id)
+
     def _loop(self):
         # a new thread's current device is device 0, whatever the runtime
         # was built on
@@ -1362,31 +1386,25 @@ class DeviceRuntime:
         m = Metrics.shared()
         prefix = f"device.{self.source.id}"
         self._gauges = (m.counter(f"{prefix}.blocks"),
+                        m.counter(f"{prefix}.early_completions"),
                         {name: m.direct(f"{prefix}.{name}")
                          for name in ("proc_block_ms", "samples_per_s", "realtime_factor")})
         read = self.spans["read"]
         pending = deque()
 
-        def drain_all():
-            while pending:
-                try:
-                    self._finish(pending.popleft(), self._cause)
-                except Exception:
-                    logger.exception("device %s block completion failed",
-                                     self.source.id)
-
         while self._running:
-            # short timeout while blocks are in flight: a paused stream
-            # must not hold completed results for the idle timeout
+            # with blocks in flight, a poll: what the source has not got yet
+            # must not hold back what the card has done
             with read(rid=self._n_dispatch, parent=-1) as span:
-                block = self.source.read_block(timeout=0.06 if pending else 1.0)
-                if block is None:
-                    span.rid, span.outcome = -1, "timeout"
-                else:
+                block = self.source.read_block(timeout=0 if pending else 1.0)
+                if block is not None:
                     span.outcome = "block"
+                else:
+                    span.rid, span.outcome = -1, "empty" if pending else "timeout"
             self._cause = span.sid
             if block is None:
-                drain_all()
+                if pending:
+                    self._complete_oldest(pending, early=True)
                 continue
             try:
                 self._pump(block, pending)
@@ -1395,7 +1413,8 @@ class DeviceRuntime:
                                  self.source.id)
                 pending.clear()
                 continue
-        drain_all()
+        while pending:
+            self._complete_oldest(pending)
 
     def _process_block(self, block):
         """Synchronous dispatch + complete (tests and direct callers)."""
@@ -1424,7 +1443,7 @@ class DeviceRuntime:
             if self.in_rate:
                 g["realtime_factor"] = round(self.block / seconds / self.in_rate, 2)
         if self._gauges is not None:
-            blocks, direct = self._gauges
+            blocks, _, direct = self._gauges
             blocks.inc()
             for name, metric in direct.items():
                 metric.set(g[name])

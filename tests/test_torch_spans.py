@@ -3,16 +3,21 @@
 
 A small runtime (1.024 MS/s, a listener on the filterbank and one at a
 channel edge on a full-rate bank, the waterfall) runs its own loop on the
-test's thread, fed by a source that pauses past the loop's read timeout
-between blocks and retunes both listeners from inside a read, so that
-the first dispatch after each change is known.  Held here: one
-``dispatch``, ``hold`` and ``complete`` a block with its children inside,
-a hold ended by a read that timed out, each retune's ``apply`` closing at
-the next dispatch, the log's bound, the profiler's ranges on the log's
-clock, the per-block gauge and the registry's view.
+test's thread, fed by a source that pauses between blocks (a read finds
+nothing) and retunes both listeners from inside a read, so that the
+first dispatch after each change is known.  Held here: one ``dispatch``,
+``hold`` and ``complete`` a block with its children inside, a hold ended
+at once by a poll that found nothing newer, each retune's ``apply``
+closing at the next dispatch, the log's bound, the profiler's ranges on
+the log's clock, the per-block gauge and the registry's view; and the
+loop's choice of when to complete a block: ``pipeline_depth`` blocks in
+flight while the source always has the next one, and a block that
+arrives while older ones are in flight dispatched before the next of
+them completes.
 """
 
 import json
+import queue
 import time
 
 import numpy as np
@@ -23,7 +28,7 @@ from openwebrx_tpu_torch.core.metrics import CODE_BITS, Metrics, SpanLog
 from openwebrx_tpu_torch.runtime.device import DeviceRuntime
 
 RATE = 1.024e6          # 32 filterbank channels of 32 kHz for SSB
-TIMEOUT = 0.06          # the loop's read timeout while a block is in flight
+TIMEOUT = 0.06          # the loop's old read timeout with a block in flight: a hold now ends well under it
 BLOCKS = 6
 PFB_DIAL, EDGE_DIAL = 100e3, 44e3          # channel 3 + 4 kHz; channel 1 + 12 kHz
 RETUNES = {2: (130e3, 76e3), 4: (100e3, 44e3)}   # before block k: (pfb, edge)
@@ -31,7 +36,7 @@ RETUNES = {2: (130e3, 76e3), 4: (100e3, 44e3)}   # before block k: (pfb, edge)
 
 class PausingSource:
     """Hands ``blocks`` uint8 blocks, each after the first to the read
-    after one that timed out (it waits its whole timeout); before block
+    after one that found nothing (it waits its whole timeout); before block
     ``k`` of ``RETUNES`` it retunes both listeners, on the reading thread.
     Once all are handed, it stops the runtime."""
 
@@ -71,9 +76,9 @@ class PausingSource:
         return self.rng.integers(120, 136, (self.block_size, 2), dtype=np.uint8)
 
 
-def _runtime(src):
+def _runtime(src, pipeline_depth=2):
     rt = DeviceRuntime(src, fft_size=1024, compression="none", fft_compression="none",
-                       capacity=4,
+                       capacity=4, pipeline_depth=pipeline_depth,
                        target_seconds=0.05, device="cpu")
     src.rt = rt
     pfb, edge = rt.open_channel("usb", PFB_DIAL), rt.open_channel("usb", EDGE_DIAL)
@@ -121,19 +126,26 @@ class TestBlockSpans:
                     assert p["start"] <= r["start"] <= r["end"] <= p["end"], child
 
     def test_a_hold_past_the_read_timeout_was_ended_by_a_timed_out_read(self, looped):
+        # the source has one block a pause: the poll after each dispatch
+        # finds nothing newer, and the block completes at once, well under
+        # the old read timeout
         rt, _ = looped
         reads = rt.spans["read"]
         read = {int(r["seq"]) - 1: r for r in reads.records()}
         holds = rt.spans["hold"].records()
-        # every block is held until a read times out: the next comes later
+        assert sorted(int(h["id"]) for h in holds) == list(range(BLOCKS))
         for h in holds:
             cause = read[int(h["parent"]) >> CODE_BITS]
-            assert reads.outcomes[cause["outcome"]] == "timeout"
+            assert reads.outcomes[cause["outcome"]] == "empty"
             assert cause["id"] == -1
-            assert h["end"] - h["start"] >= TIMEOUT
-            assert cause["end"] <= h["end"]
+            assert h["end"] - h["start"] < TIMEOUT / 2
+            assert h["start"] <= cause["start"] <= cause["end"] <= h["end"]
         blocks = [r for r in reads.records() if reads.outcomes[r["outcome"]] == "block"]
         assert sorted(int(r["id"]) for r in blocks) == list(range(BLOCKS))
+        assert rt.gauges["early_completions"] == BLOCKS
+        m = Metrics.shared()
+        assert m.get(f"device.{rt.source.id}.early_completions").get_value() == {"count": BLOCKS}
+        assert m.get(f"device.{rt.source.id}.blocks").get_value() == {"count": BLOCKS}
 
     def test_a_retune_applies_at_the_next_dispatch_on_either_bank(self, looped):
         rt, src = looped
@@ -175,6 +187,121 @@ class TestBlockSpans:
         rate = rt.block / (seen[4] / 1e3)
         assert abs(rt.gauges["samples_per_s"] - rate) <= 1e-3 * rate
         assert abs(rt.gauges["realtime_factor"] - rate / RATE) <= 0.01
+
+
+class ReadySource:
+    """Always has the next block ready while it lasts: ``blocks`` uint8
+    blocks, each read at once.  Then it has nothing; the loop's first wait
+    on it (a read with a timeout, nothing in flight) stops the runtime.
+    ``arrive()`` adds a block that arrives later, handed to the next read.
+    Keeps, at every read, the blocks in flight and the early completions
+    so far."""
+
+    def __init__(self, blocks, name):
+        self.id = name
+        self.block_size = None
+        self.rt = None
+        self.left = blocks
+        self.later = queue.Queue()
+        self.seen = []                 # (in flight, early completions) at each read
+        self.rng = np.random.default_rng(11)
+
+    def get_sample_rate(self):
+        return RATE
+
+    def start(self):
+        pass
+
+    def _block(self):
+        return self.rng.integers(120, 136, (self.block_size, 2), dtype=np.uint8)
+
+    def arrive(self):
+        self.later.put(self._block())
+
+    def read_block(self, timeout=1.0):
+        rt = self.rt
+        self.seen.append((rt._n_dispatch - rt.gauges["blocks"],
+                          rt.gauges["early_completions"]))
+        if self.left:
+            self.left -= 1
+            return self._block()
+        try:
+            return self.later.get_nowait()
+        except queue.Empty:
+            pass
+        if timeout > 0:
+            rt._running = False
+        return None
+
+
+def _outcomes(rt):
+    reads = rt.spans["read"]
+    return [reads.outcomes[r["outcome"]] for r in reads.records()]
+
+
+def _hold_causes(rt):
+    """Block → the read (its record) that ended its hold."""
+    read = {int(r["seq"]) - 1: r for r in rt.spans["read"].records()}
+    return {int(h["id"]): read[int(h["parent"]) >> CODE_BITS]
+            for h in rt.spans["hold"].records()}
+
+
+class TestWhenToComplete:
+    @pytest.mark.parametrize("depth", [2, 3])
+    def test_a_source_with_the_next_block_ready_keeps_the_pipeline_full(self, depth):
+        n = 6
+        src = ReadySource(n, name=f"spans-test-ready{depth}")
+        rt = _runtime(src, pipeline_depth=depth)
+        src.rt = rt
+        _run_loop(rt)
+        # while the source lasts no block completes early, and every read
+        # after the first depth - 1 finds depth - 1 blocks in flight: the
+        # block it returns makes depth
+        assert src.seen[:n] == [(min(k, depth - 1), 0) for k in range(n)]
+        assert _outcomes(rt) == (["block"] * n + ["empty"] * (depth - 1) + ["timeout"])
+        reads = rt.spans["read"]
+        causes = _hold_causes(rt)
+        assert sorted(causes) == list(range(n))
+        for b, cause in causes.items():
+            if b <= n - depth:        # pushed out by the read of a newer block
+                assert reads.outcomes[cause["outcome"]] == "block"
+                assert cause["id"] == b + depth - 1
+            else:                     # the source ran dry: completed early
+                assert reads.outcomes[cause["outcome"]] == "empty"
+        assert rt.gauges["blocks"] == n
+        assert rt.gauges["early_completions"] == depth - 1
+        counter = Metrics.shared().get(f"device.{rt.source.id}.early_completions")
+        assert counter.get_value() == {"count": depth - 1}
+
+    def test_a_block_that_arrives_while_older_ones_are_in_flight_goes_first(self):
+        # blocks 0 and 1 are ready, then nothing: the poll completes block 0,
+        # and block 2 arrives while it completes; the next poll dispatches
+        # block 2 before block 1 completes
+        src = ReadySource(2, name="spans-test-arrival")
+        rt = _runtime(src, pipeline_depth=3)
+        src.rt = rt
+        complete = rt._complete_block
+
+        def completing(pending):
+            if rt.gauges["blocks"] == 0:        # block 0 completes: block 2 arrives
+                src.arrive()
+            complete(pending)
+        rt._complete_block = completing
+        _run_loop(rt)
+        assert _outcomes(rt) == ["block", "block", "empty", "block", "empty", "empty",
+                                 "timeout"]
+        dispatch, _ = _by_id(rt, "dispatch")
+        done, _ = _by_id(rt, "complete")
+        assert sorted(done) == [0, 1, 2]
+        assert done[0]["end"] <= dispatch[2]["start"] < dispatch[2]["end"] <= done[1]["start"]
+        reads = rt.spans["read"]
+        causes = _hold_causes(rt)
+        block2 = next(r for r in reads.records()
+                      if reads.outcomes[r["outcome"]] == "block" and r["id"] == 2)
+        for b in (0, 1, 2):
+            assert reads.outcomes[causes[b]["outcome"]] == "empty"
+        assert causes[0]["end"] <= block2["start"] < block2["end"] <= causes[1]["start"]
+        assert rt.gauges["early_completions"] == 3
 
 
 class TestLog:
