@@ -227,6 +227,20 @@ class Pending:
         self.y, self.aux, self.event = y, aux, event
 
 
+def pinned_copy(host: np.ndarray, pin: bool = True) -> torch.Tensor:
+    """``host`` copied into page-locked memory for a copy to the card: a
+    block of PyTorch's caching host allocator (which hands it out again
+    only once the copies enqueued from it are done), filled by one thread
+    with ``np.copyto``, the interpreter lock released.  ``Tensor.copy_``
+    would split a block of millions of elements over the whole intra-op
+    OpenMP team, which at real time has slept a block's length between two
+    copies, and wait for its last worker.  ``pin=False``: ordinary memory
+    (the CPU tests)."""
+    staged = torch.empty(host.shape, dtype=torch.from_numpy(host).dtype, pin_memory=pin)
+    np.copyto(staged.numpy(), host, casting="no")
+    return staged
+
+
 def _to_host_async(t: torch.Tensor) -> torch.Tensor:
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)

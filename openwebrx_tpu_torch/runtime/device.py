@@ -15,7 +15,8 @@ callbacks (called on that thread: they must be quick or enqueue):
 What differs from the reference is mechanism only:
 
 * A block goes to the card once, through a pinned staging buffer taken
-  fresh for that block; uint8 and int16 wire samples go up as they are and
+  fresh for that block and filled by one thread (``runtime/chain.py``
+  ``pinned_copy``); uint8 and int16 wire samples go up as they are and
   become float on the card.  Every program gets that one device block.
 * Every bank and program runs its block step over static buffers
   (``runtime/chain.py`` ``GraphStep``, the counterpart of the reference's
@@ -57,7 +58,8 @@ What differs from the reference is mechanism only:
   read: outcome ``block`` when it returned one, ``empty`` when a poll
   with blocks in flight found none, ``timeout`` when a wait with none in
   flight ran out), ``dispatch`` (with
-  ``upload``, and each block step's ``eager`` first block and
+  ``upload``, inside it on a card ``stage``, the host copy into pinned
+  memory, and each block step's ``eager`` first block and
   ``capture``), ``hold`` (from the end of its dispatch until the loop
   takes it off its queue; caused by the read that ended it) and
   ``complete`` (with ``fetch``, the wait on its one event, and
@@ -110,7 +112,7 @@ from openwebrx_tpu_torch.ops.channelizer import channel_frequencies
 from openwebrx_tpu_torch.ops.formats import Format, StreamSpec
 from openwebrx_tpu_torch.runtime.bank import ChannelBank
 from openwebrx_tpu_torch.runtime.chain import (
-    Pending, Program, as_input_block, finish_fetch, start_fetches)
+    Pending, Program, as_input_block, finish_fetch, pinned_copy, start_fetches)
 from openwebrx_tpu_torch.runtime.channelized import ChannelizedBank
 
 logger = logging.getLogger(__name__)
@@ -153,8 +155,8 @@ HOST_NAMES = {
 # The runtime's span names (``DeviceRuntime.spans``) → their outcomes
 RUNTIME_SPANS = {"build": (), "bank": (), "kernels": (),
                  "read": ("block", "timeout", "empty"), "dispatch": (), "upload": (),
-                 "eager": (), "capture": (), "hold": (), "complete": (), "fetch": (),
-                 "deliver": (), "control": (), "lock": (), "apply": ()}
+                 "stage": (), "eager": (), "capture": (), "hold": (), "complete": (),
+                 "fetch": (), "deliver": (), "control": (), "lock": (), "apply": ()}
 
 
 class _PortHost:
@@ -1451,15 +1453,15 @@ class DeviceRuntime:
     def _upload(self, block) -> torch.Tensor:
         """One host→device transfer of an IQ block, shared by every
         program: complex samples as float32 pairs, int16/uint8 wire pairs
-        as they are, staged in pinned memory taken fresh for this block
-        (PyTorch's host allocator keeps it until the copy is done) →
+        as they are, staged on a card in pinned memory taken fresh for
+        this block (``pinned_copy``; a ``stage`` span) →
         (block,) complex64 on the device."""
         with self.spans["upload"]():
             host = torch.from_numpy(np.ascontiguousarray(
                 self.fft_program.pack_input(block)))
             if self.device.type == "cuda":
-                staged = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-                staged.copy_(host)
+                with self.spans["stage"]():
+                    staged = pinned_copy(host.numpy())
                 x = staged.to(self.device, non_blocking=True)
             else:
                 x = host.clone()          # the source may reuse its buffer

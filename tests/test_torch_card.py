@@ -1,5 +1,6 @@
 """The port's card-only tests: every hand-written CUDA kernel against its
-plain PyTorch version on a card, and the runtime's one event per block.
+plain PyTorch version on a card, the runtime's one event per block and its
+upload's single-threaded staging copy.
 
 Each test carries the ``cuda`` marker and skips without a card.  This file
 imports no jax and nothing of ``openwebrx_tpu``, so the card's machine,
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from openwebrx_tpu_torch import kernels
+from openwebrx_tpu_torch.core.metrics import CODE_BITS
 from openwebrx_tpu_torch.core.property import PropertyLayer
 from openwebrx_tpu_torch.ops import adpcm as tadpcm
 from openwebrx_tpu_torch.ops import agc as tagc
@@ -26,6 +28,7 @@ from openwebrx_tpu_torch.ops import channelizer as tpfb
 from openwebrx_tpu_torch.ops import iir as tiir
 from openwebrx_tpu_torch.ops import squelch as tsq
 from openwebrx_tpu_torch.ops.fold import polyphase_fold, polyphase_fold_plain
+from openwebrx_tpu_torch.runtime.chain import as_input_block
 from openwebrx_tpu_torch.runtime.device import PORT_HOST, DeviceRuntime
 from openwebrx_tpu_torch.sources.file import SignalSource
 import torch_graph_scenes as gs
@@ -487,6 +490,92 @@ class TestOnCard:
             assert len(events) == 1 and None not in events
             assert len(pend["bank_pending"].get("pfb:ssb", [])) == (6 if i == 5 else 0)
             rt._complete_block(pend)
+
+
+def _wire_block(kind, n, seed):
+    """One source block of ``n`` samples as a source hands it: packed
+    (n, 2) uint8 / int16 / float32 pairs, or (n,) complex64."""
+    rng = np.random.default_rng(seed)
+    if kind == "complex64":
+        return (0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                ).astype(np.complex64)
+    if kind == "float32":
+        return (0.05 * rng.standard_normal((n, 2))).astype(np.float32)
+    dtype = np.dtype(kind)
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max, (n, 2), dtype=dtype, endpoint=True)
+
+
+def _copy_upload(rt, block):
+    """A device block as a fresh pinned buffer filled by ``Tensor.copy_``
+    uploads it, the way ``pinned_copy`` replaced."""
+    host = torch.from_numpy(np.ascontiguousarray(rt.fft_program.pack_input(block)))
+    staged = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+    staged.copy_(host)
+    return as_input_block(staged.to(rt.device, non_blocking=True), rt.block, True,
+                          rt.device)
+
+
+class TestStagingOnCard:
+    """``DeviceRuntime._upload`` on a card, its host copy ``pinned_copy``:
+    every device block is bit for bit the one ``Tensor.copy_`` into a fresh
+    pinned buffer gives, while the source writes its one buffer again after
+    each call and nothing waits in between, and no ``Tensor.copy_`` runs;
+    one ``stage`` span inside one ``upload`` span a block."""
+
+    @staticmethod
+    def _runtime(name):
+        return DeviceRuntime(_source([], name=name), capacity=8, target_seconds=0.05,
+                             host=PORT_HOST, fft_size=1024)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("kind", ["uint8", "int16", "float32", "complex64"])
+    def test_every_device_block_is_the_tensor_copy_upload_s(self, cuda_device, kind,
+                                                             monkeypatch):
+        rt = self._runtime(f"staging-{kind}")
+        copy_ = torch.Tensor.copy_
+
+        def refused(*args, **kwargs):
+            raise AssertionError("the upload went through Tensor.copy_")
+
+        blocks = 2 * rt.pipeline_depth + 1
+        first = _wire_block(kind, rt.block, 0)
+        source = np.empty_like(first)             # the source's one buffer
+        got, want = [], []
+        for i in range(blocks):
+            np.copyto(source, _wire_block(kind, rt.block, i))
+            want.append(_copy_upload(rt, source.copy()))
+            monkeypatch.setattr(torch.Tensor, "copy_", refused)
+            got.append(rt._upload(source))
+            monkeypatch.setattr(torch.Tensor, "copy_", copy_)
+        source[...] = 0
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == torch.complex64 and g.device == cuda_device
+            assert torch.view_as_real(g).cpu().numpy().tobytes() == \
+                torch.view_as_real(w).cpu().numpy().tobytes(), i
+
+    @pytest.mark.cuda
+    def test_one_stage_span_inside_the_upload_span_of_each_block(self, cuda_device):
+        import time
+        rt = self._runtime("staging-paced")
+        rt.subscribe_waterfall(lambda p: None)
+        blocks = 3 * (rt.pipeline_depth + 1) + 1
+        source = np.empty((rt.block, 2), np.uint8)
+        for i in range(blocks):
+            np.copyto(source, _wire_block("uint8", rt.block, i))
+            rt._process_block(source)
+            time.sleep(0.01)
+        assert rt.gauges["blocks"] == blocks
+        upload = {int(r["seq"]) - 1: r for r in rt.spans["upload"].records()}
+        stage = rt.spans["stage"].records()
+        assert len(upload) == len(stage) == blocks
+        for r in stage:
+            parent = upload[int(r["parent"]) >> CODE_BITS]
+            assert rt.spans.find(int(r["parent"])).name == "upload"
+            assert r["id"] == parent["id"]
+            assert parent["start"] <= r["start"] <= r["end"] <= parent["end"]
+        assert sorted(int(r["id"]) for r in stage) == list(range(blocks))
 
 
 @pytest.fixture

@@ -9,7 +9,8 @@ first dispatch after each change is known.  Held here: one ``dispatch``,
 ``hold`` and ``complete`` a block with its children inside, a hold ended
 at once by a poll that found nothing newer, each retune's ``apply``
 closing at the next dispatch, the log's bound, the profiler's ranges on
-the log's clock, the per-block gauge and the registry's view; and the
+the log's clock, the per-block gauge, no ``stage`` span on the CPU and
+the registry's view; and the
 loop's choice of when to complete a block: ``pipeline_depth`` blocks in
 flight while the source always has the next one, and a block that
 arrives while older ones are in flight dispatched before the next of
@@ -146,6 +147,12 @@ class TestBlockSpans:
         m = Metrics.shared()
         assert m.get(f"device.{rt.source.id}.early_completions").get_value() == {"count": BLOCKS}
         assert m.get(f"device.{rt.source.id}.blocks").get_value() == {"count": BLOCKS}
+
+    def test_the_cpu_upload_stages_nothing(self, looped):
+        # the pinned host copy and its `stage` span are the card's
+        rt, _ = looped
+        assert len(rt.spans["stage"].records()) == 0
+        assert len(rt.spans["upload"].records()) == BLOCKS
 
     def test_a_retune_applies_at_the_next_dispatch_on_either_bank(self, looped):
         rt, src = looped
