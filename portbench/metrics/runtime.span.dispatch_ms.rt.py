@@ -10,8 +10,8 @@ from openwebrx_tpu_torch.core.metrics import Metrics
 
 def read(run):
     log = Metrics.shared().get("device.portbench.span.dispatch")
-    dispatch, deliver = run.spans.get("dispatch"), run.spans.get("deliver")
-    if log is None or not dispatch or not deliver or not run.blocks:
+    dispatch, complete = run.spans.get("dispatch"), run.spans.get("complete")
+    if log is None or not dispatch or not complete or not run.blocks:
         return None
-    got = log.durations(min(a for a, _ in dispatch), max(b for _, b in deliver))
+    got = log.durations(min(a for a, _ in dispatch), max(b for _, b in complete))
     return None if got is None else 1e3 * float(got.sum()) / run.blocks

@@ -55,6 +55,16 @@ def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
+def window_spans(rec, blocks, end: float) -> dict:
+    """The benchmark's own stamps of the window, as the readers and the
+    trace's idle gaps take them: each block's ``dispatch`` and
+    ``complete``, and each ``control`` change due by ``end``."""
+    return {"dispatch": [rec.dispatch[b] for b in blocks if b in rec.dispatch],
+            "complete": [rec.complete[b] for b in blocks if b in rec.complete],
+            "control": [(c["requested"], c["done"]) for c in rec.control
+                        if c["scheduled"] is not None and c["scheduled"] <= end]}
+
+
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
              t_start: float | None = None, control: bool = False, root: Path = ROOT,
              hooks=None, extra: dict | None = None) -> dict:
@@ -115,17 +125,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         for m in e2e_metrics:
             metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
 
-    spans = {"dispatch": [drv.rec.dispatch[b] for b in blocks if b in drv.rec.dispatch],
-             "wait": [drv.rec.complete[b][:2] for b in blocks if b in drv.rec.complete],
-             "deliver": [drv.rec.complete[b][1:] for b in blocks if b in drv.rec.complete],
-             "control": [(c["requested"], c["done"]) for c in drv.rec.control
-                         if c["scheduled"] is not None and c["scheduled"] <= t0 + seconds]}
+    spans = window_spans(drv.rec, blocks, t0 + seconds)
     reduced = None
     if trace:
         from pbench.trace import reduce_trace
         t_pc, events, marker = traced
         reduced = reduce_trace(events, marker, t_pc, spans)
-        run = Run(spans=spans, blocks=len(blocks), changes=changes, trace=reduced)
+        run = Run(spans=spans, blocks=len(blocks), changes=changes, latencies=lat,
+                  trace=reduced)
         for m in layer:
             v = reader(m["name"])(run)
             if v is not None:

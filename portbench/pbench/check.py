@@ -72,6 +72,16 @@ def unresolved(rec):
     return pairs, slots
 
 
+def misrouted(rec) -> int:
+    """Listeners routed to a slot that another listener held in the same
+    block, over every block and bank."""
+    n = 0
+    for routing in rec.routing.values():
+        held = [where for where in routing.values() if where[1] is not None]
+        n += len(held) - len(set(held))
+    return n
+
+
 def delivery_faults(rec, deliveries, first_block: int = 0) -> int:
     """(listener, block) audio results due and never delivered, or
     delivered out of order, from ``first_block`` on."""
@@ -210,7 +220,7 @@ def judge(cfg, traffic, drv, wire, deliveries, seed: int, device,
     check = traffic.get("check", {})
     slots = sample_slots(rec, seed, int(check.get("slots_per_bank", 8)))
     first = drv.first_window_block
-    numbers = {"missing": delivery_faults(rec, deliveries, first), "misrouted": 0}
+    numbers = {"missing": delivery_faults(rec, deliveries, first), "misrouted": misrouted(rec)}
     ctl = ControlProgram() if control else None
     obs = None if control else program_cells(rec, deliveries, slots)
     worst, bad, n, forks, wrong, capped = 0.0, 0, 0, 0, 0, 0
@@ -218,7 +228,6 @@ def judge(cfg, traffic, drv, wire, deliveries, seed: int, device,
     for key, chosen in slots.items():
         t = time.perf_counter()
         hist = History(key, fs, block, rec, drv.dials, chosen, variants=not control)
-        numbers["misrouted"] += hist.conflicts
         capped += hist.capped
         seg = int(check.get("segment_blocks", 8))
         if control:

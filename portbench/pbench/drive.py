@@ -4,15 +4,19 @@ control change and span recorded.
 The runtime is ``openwebrx_tpu_torch.runtime.device.DeviceRuntime`` on
 its own loop thread (``start()``), built with the arguments the server's
 ``SdrService._new_runtime`` gives it from the configuration's settings.
-The benchmark wraps two of its methods on the instance:
-``_dispatch_block`` (routing, upload, each bank's dispatch, fetch start)
-and ``_complete_block``, split at the wait for the block's copies (the
-rest is delivery: numpy, framing, callbacks).  Control changes come from
-a thread of the benchmark's own on a wall-clock schedule, as the
-server's asyncio thread makes them, and nothing of the benchmark's orders
-them against the loop: which block a change reached first is worked out
-afterwards from the times of the change and of each dispatch
-(``Driver.resolve``).
+The benchmark wraps two of its methods on the instance, and on the loop
+thread does no more than read the clock, number the block and note what
+the runtime's own dispatch returned: ``_dispatch_block`` (routing, upload,
+each bank's dispatch, fetch start) is stamped at its start and end, with
+the banks it ran and whether the waterfall ran; ``_complete_block`` (the
+wait on the block's event, then delivery: numpy, framing, callbacks) at
+its start and end.  Control changes come from a thread of the benchmark's
+own on a wall-clock schedule, as the server's asyncio thread makes them,
+and nothing of the benchmark's orders them against the loop.  That
+thread reads a listener's bank and slot after each call on it returns
+(``Record.moves``); which slot each listener held in each block, and
+which block a change reached first, are worked out afterwards from those
+times and the times of each dispatch (``Driver.resolve``).
 """
 
 from __future__ import annotations
@@ -28,10 +32,13 @@ class Record:
     """What a run recorded, block ``b`` numbered in dispatch order."""
     n_dispatch: int = 0
     dispatch: dict = field(default_factory=dict)     # b → (t0, t1)
-    routing: dict = field(default_factory=dict)      # b → {hid: (key, slot)}
-    active: dict = field(default_factory=dict)       # b → [bank keys]
+    # (hid, call start, call end, (bank key, slot) or None once it left):
+    # a listener's routing as read after each call on it returned
+    moves: list = field(default_factory=list)
+    routing: dict = field(default_factory=dict)      # b → {hid: (key, slot)}; ``Driver.route``
+    active: dict = field(default_factory=dict)       # b → the bank keys the dispatch ran
     waterfall_ran: dict = field(default_factory=dict)  # b → bool
-    complete: dict = field(default_factory=dict)     # b → (t0, t_waited, t1)
+    complete: dict = field(default_factory=dict)     # b → (t0, t1)
     audio: dict = field(default_factory=lambda: defaultdict(list))  # hid → [(b, t, bytes)]
     rows: dict = field(default_factory=lambda: defaultdict(list))   # b → [payload]
     control: list = field(default_factory=list)      # dicts
@@ -71,6 +78,9 @@ class Driver:
 
     # -- instrumentation --------------------------------------------------
     def _wrap(self):
+        """Stamps on the loop thread: no lock, no loop over listeners or
+        banks, no wait (a traced run also starts and stops its profiler
+        there)."""
         rt, rec = self.rt, self.rec
         dispatch, complete = rt._dispatch_block, rt._complete_block
 
@@ -78,32 +88,23 @@ class Driver:
             if self.profiler is not None:
                 self.profiler.at_dispatch(rec.n_dispatch)
             t0 = time.perf_counter()
-            # the routing as the runtime's own snapshot, moments later
-            # under the same lock, finds it
-            with rt._lock:
-                b = rec.n_dispatch
-                rec.n_dispatch += 1
-                rec.routing[b] = {hid: (h.bucket_key, h.slot)
-                                  for hid, h in list(self.handles.items())}
-                rec.active[b] = [k for k, bank in list(rt.banks.items())
-                                 if bank.n_active]
-                rec.waterfall_ran[b] = bool(rt.waterfall_subscribers)
+            b = rec.n_dispatch
+            rec.n_dispatch += 1
             pending = dispatch(block)
             rec.dispatch[b] = (t0, time.perf_counter())
+            # the runtime's own snapshot of the banks it ran (a dict made
+            # for this block); its keys are taken after the run
+            rec.active[b] = pending["banks"]
+            rec.waterfall_ran[b] = bool(pending["fft_pending"])
             pending["portbench_block"] = b
             return pending
 
         def wrapped_complete(pending):
             b = pending.get("portbench_block", -1)
             t0 = time.perf_counter()
-            for p in _pendings(pending):
-                event = getattr(p, "event", None)
-                if event is not None:
-                    event.synchronize()
-            t1 = time.perf_counter()
             rec.current = b
             complete(pending)
-            rec.complete[b] = (t0, t1, time.perf_counter())
+            rec.complete[b] = (t0, time.perf_counter())
 
         rt._dispatch_block = wrapped_dispatch
         rt._complete_block = wrapped_complete
@@ -133,13 +134,17 @@ class Driver:
             self.rt.subscribe_waterfall(cb)
 
     def open(self, hid: int, mode: str, hz: float):
+        t = time.perf_counter()
         h = self.rt.open_channel(mode, hz, service=self.service)
         h.audio_cb = self._audio_cb(hid)
         self.handles[hid] = h
+        self.rec.moves.append((hid, t, time.perf_counter(), (h.bucket_key, h.slot)))
 
     def close(self, hid: int):
+        t = time.perf_counter()
         h = self.handles.pop(hid)
         self.rt.release_channel(h)
+        self.rec.moves.append((hid, t, time.perf_counter(), None))
         if hid in self._wf_cbs:
             self.rt.unsubscribe_waterfall(self._wf_cbs.pop(hid))
 
@@ -157,8 +162,10 @@ class Driver:
             self.open(ev.new_listener, ev.mode, hz)
             who = ev.new_listener
         elif ev.listener in self.handles:       # a retune, an edge drag or its return
-            self.handles[ev.listener].set_offset(hz)
+            h = self.handles[ev.listener]
+            h.set_offset(hz)
             who = ev.listener
+            self.rec.moves.append((who, t_req, time.perf_counter(), (h.bucket_key, h.slot)))
         else:
             return
         t_done = time.perf_counter()
@@ -166,13 +173,37 @@ class Driver:
                                  "hz": hz, "scheduled": scheduled, "requested": t_req,
                                  "done": t_done})
 
+    def route(self):
+        """Each block's routing, from the records: a listener
+        holds in block b what was read after the last call on it that
+        returned before b's dispatch began.  A call that overlapped the
+        dispatch leaves the block with what the listener held before it;
+        whether it reached the block is open (``resolve``), and where the
+        call moved the listener, ``check.unresolved`` leaves it unjudged
+        there.  The runtime moves a listener only inside a call on it."""
+        moves = sorted(self.rec.moves, key=lambda m: m[2])
+        held, i = {}, 0
+        for b in sorted(self.rec.dispatch):
+            t0 = self.rec.dispatch[b][0]
+            while i < len(moves) and moves[i][2] < t0:
+                hid, _, _, where = moves[i]
+                if where is None:
+                    held.pop(hid, None)
+                else:
+                    held[hid] = where
+                i += 1
+            self.rec.routing[b] = dict(held)
+
     def resolve(self):
-        """After the run: which blocks each change may first have reached.
+        """After the run: each block's routing (``route``) and bank keys,
+        and which blocks each change may first have reached.
         A dispatch that began after the change returned has it; one that
         overlapped the call may have it or not; one that ended before the
         call began has not.  Sets each change's ``firsts`` (ascending) and
         ``first`` (the last of them: the first block certain to have it),
         and ``dials``."""
+        self.route()
+        self.rec.active = {b: list(banks) for b, banks in self.rec.active.items()}
         starts = sorted((t0, t1, b) for b, (t0, t1) in self.rec.dispatch.items())
         for cid, c in enumerate(self.rec.control):
             after = [b for t0, _, b in starts if t0 > c["done"]]
@@ -263,6 +294,7 @@ class Driver:
         if extra:
             held = self.first_window_block
             for _ in range(8):
+                self.route()
                 got = deliveries(self.rec)
                 if all(b in got.get(hid, {}) for b in range(held, last + 1)
                        for hid, (key, slot) in self.rec.routing[b].items()
@@ -280,15 +312,6 @@ def _out_dir():
     """Scratch space inside the checkout (git-ignored)."""
     from pathlib import Path
     return Path(__file__).resolve().parents[1] / ".out"
-
-
-def _pendings(pending: dict):
-    """The Pending objects of a dispatched block, wherever the runtime
-    keeps them."""
-    out = list(pending.get("fft_pending", []))
-    for pl in pending.get("bank_pending", {}).values():
-        out.extend(pl)
-    return out
 
 
 def deliveries(rec: Record) -> dict:

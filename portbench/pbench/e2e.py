@@ -2,7 +2,8 @@
 
 * ``latency_p95_ms``: over every (listener, block) audio delivery of the
   window's blocks, callback time minus the block's due time (when its
-  last sample left the receiver);
+  last sample left the receiver); kept in a run's information, and read
+  per layer by ``metrics/delivery.latency_p95_ms.rt.py``;
 * ``tune_p95_ms``: over every control change due in the window, the first
   audio for its listener from a block dispatched after the change's call
   returned, minus the change's scheduled time; a change never heard

@@ -79,19 +79,12 @@ class History:
         self.m = filterbank_channels(fs, self.mode)
         self.blocks = [b for b in sorted(rec.active) if key in rec.active[b]]
         lo, hi = PASSBAND[self.mode]
-        self.conflicts = 0
         self.capped = 0
         self.diverge = {}                        # slot → its first ambiguous block
         holders = {s: [] for s in slots}        # slot → [(block index, hid)]
         for j, b in enumerate(self.blocks):
-            seen = {}
             for hid, (k, slot) in rec.routing[b].items():
-                if k != key or slot is None:
-                    continue
-                if slot in seen:
-                    self.conflicts += 1
-                seen[slot] = hid
-                if slot in holders:
+                if k == key and slot in holders:
                     holders[slot].append((j, hid))
         rows = []                                # (slot, {change id: first block})
         for s in slots:

@@ -1,7 +1,8 @@
 """Whole runs on the CPU at a small size, of a cell made of data alone
 (a configuration file, a traffic file and an entry in BENCHMARK.json):
 sound, with the bfloat16 control in the program's place, and with the
-timed path broken underneath in each way a cell of this system can be."""
+timed path broken underneath in each way a cell of this system can be,
+its routing among them."""
 
 import json
 
@@ -49,7 +50,7 @@ def root(tmp_path_factory):
                             "source": "host_clock"},
                            {"name": "tune_p95_ms", "unit": "ms", "better": "lower",
                             "bound": 0.1, "source": "host_clock"}],
-            "per_layer": [{"name": "runtime.control_ms.rt", "unit": "ms", "better": "lower",
+            "per_layer": [{"name": "runtime.span.control_ms.rt", "unit": "ms", "better": "lower",
                            "source": "program_span", "layer": "runtime",
                            "moves": "tune_p95_ms"}]}
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
@@ -149,3 +150,32 @@ def test_a_broken_timed_path_is_not_correct(root, monkeypatch, fault):
     r = _run(root, hooks=fault(monkeypatch))
     assert not r["correct"], r["checks"]
     assert r["checks"]["audio_wrong_per_block"]["value"] > check.LIMITS["audio_wrong_per_block"]
+
+
+def _swapped_slots(monkeypatch):
+    """One retune that also swaps the retuned listener's slot with another
+    listener's of its bank, behind the other's back: from then on each
+    hears the other's dial."""
+    from openwebrx_tpu_torch.runtime import device
+    set_offset = device.ChannelHandle.set_offset
+    swapped = []
+
+    def wrong(self, offset_hz):
+        set_offset(self, offset_hz)
+        other = next((h for h in self.runtime.handles if h is not self
+                      and h.bucket_key == self.bucket_key and h.slot is not None), None)
+        if other is not None and not swapped:
+            self.slot, other.slot = other.slot, self.slot
+            swapped.append(self)
+    monkeypatch.setattr(device.ChannelHandle, "set_offset", wrong)
+    return swapped
+
+
+def test_a_misrouted_listener_is_not_correct(root, monkeypatch):
+    """The benchmark reads a listener's slot after each call on that listener:
+    the swap shows as two listeners on one slot."""
+    swapped = _swapped_slots(monkeypatch)
+    r = _run(root)
+    assert swapped
+    assert not r["correct"], r["checks"]
+    assert r["checks"]["misrouted"]["value"] >= 1

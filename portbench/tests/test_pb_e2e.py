@@ -1,6 +1,7 @@
 """Latency and tune arithmetic on a fake run with set delays, and which
 block a change reached."""
 
+from collections import defaultdict
 from types import SimpleNamespace
 
 import pytest
@@ -56,10 +57,17 @@ def test_tune_counts_from_the_scheduled_time_to_the_first_block_after():
     assert times[1] == max(times)          # an unheard change is the longest
 
 
+def _driver():
+    """A Driver with nothing but its record, for what it works out after a run."""
+    from pbench.drive import Driver
+    drv = Driver.__new__(Driver)
+    drv.rec, drv.dials = Record(), defaultdict(list)
+    return drv
+
+
 def test_a_change_made_during_a_dispatch_may_have_reached_that_block():
     from pbench.drive import Driver
-    drv = SimpleNamespace(rec=Record(), dials={})
-    drv.dials = __import__("collections").defaultdict(list)
+    drv = _driver()
     drv.rec.dispatch = {0: (10.0, 10.1), 1: (10.2, 10.3), 2: (10.4, 10.5)}
     drv.rec.n_dispatch = 3
     drv.rec.control = [
@@ -72,6 +80,51 @@ def test_a_change_made_during_a_dispatch_may_have_reached_that_block():
     assert [c["first"] for c in drv.rec.control] == [1, 2, 3]
     assert drv.ambiguous == 1
     assert drv.dials[1] == [(0, (1,), 5.0), (1, (1, 2), 6.0)]
+
+
+def test_a_call_made_during_a_dispatch_leaves_its_listener_unjudged_there():
+    """Routing comes from what the benchmark's thread read after each call
+    returned: a block whose dispatch began after the call has the new slot;
+    one whose dispatch the call overlapped keeps the old one, and the
+    listener that moved is unjudged around that block (the block before,
+    whose delivery may read the new slot, to the first certain to have it),
+    while the other listener and the other blocks are judged."""
+    from pbench.check import delivery_faults, misrouted, unresolved
+    drv = _driver()
+    rec = drv.rec
+    rec.dispatch = {b: (10.0 + 0.2 * b, 10.1 + 0.2 * b) for b in range(6)}
+    rec.n_dispatch = 6
+    rec.active = {b: {"pfbi:ssb": None} for b in range(6)}
+    rec.complete = {b: (0.0, 0.0) for b in range(6)}
+    rec.moves = [(1, 9.0, 9.1, ("pfbi:ssb", 3)), (2, 9.1, 9.2, ("pfbi:ssb", 5)),
+                 (1, 10.45, 10.46, ("pfbi:ssb", 7))]        # during block 2's dispatch
+    rec.control = [{"kind": "retune", "listener": 1, "left": 1, "hz": 5.0,
+                    "requested": 10.45, "done": 10.46}]
+    drv.resolve()
+    assert [rec.routing[b][1] for b in range(6)] == [("pfbi:ssb", 3)] * 3 + [("pfbi:ssb", 7)] * 3
+    assert all(rec.routing[b][2] == ("pfbi:ssb", 5) for b in range(6))
+    assert rec.active[0] == ["pfbi:ssb"]
+    assert rec.control[0]["firsts"] == (2, 3)
+    pairs, slots = unresolved(rec)
+    assert pairs == {(1, 1), (1, 2), (1, 3)}
+    assert slots == {("pfbi:ssb", 3), ("pfbi:ssb", 7)}
+    assert misrouted(rec) == 0
+    # the moved listener's deliveries around the change are not due; the rest are
+    got = {1: {b: (0.0, b"") for b in (0, 4, 5)}, 2: {b: (0.0, b"") for b in range(6)}}
+    assert delivery_faults(rec, got) == 0
+    del got[1][4]
+    assert delivery_faults(rec, got) == 1
+
+
+def test_two_listeners_on_one_slot_are_misrouted():
+    drv = _driver()
+    rec = drv.rec
+    rec.dispatch = {b: (10.0 + 0.2 * b, 10.1 + 0.2 * b) for b in range(4)}
+    rec.moves = [(1, 9.0, 9.1, ("pfbi:ssb", 3)), (2, 9.1, 9.2, ("pfbi:ssb", 5)),
+                 (1, 10.25, 10.26, ("pfbi:ssb", 5))]         # onto 2's slot, between 1 and 2
+    from pbench.check import misrouted
+    drv.route()
+    assert misrouted(rec) == 2                               # blocks 2 and 3
 
 
 def test_batched_deliveries_map_to_their_blocks():
