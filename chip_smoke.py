@@ -1297,7 +1297,7 @@ def output_clone_cost(torch, smi, step, iters=50) -> dict:
 def params_copy_cost(torch, smi, bank, iters=20) -> dict:
     """What a control change costs config #6's interactive bank at its
     next dispatch: the params rebuilt from the controls and uploaded
-    (``_params``), then copied into the graph's static params
+    (``Program.current_params``), then copied into the graph's static params
     (``set_params``); host ms of each, device ms of the copy (CUDA
     events).  A squelch set to its own level marks the params changed as
     a retune does; the rebuild is the same whichever control moved."""
@@ -1309,10 +1309,10 @@ def params_copy_cost(torch, smi, bank, iters=20) -> dict:
         bank.set_squelch(slot, float(bank._squelch[slot]))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params = bank._params()
+        params = bank.program.current_params()
         t1 = time.perf_counter()
         start.record()
-        bank.step.set_params(params)
+        bank.program.step.set_params(params)
         end.record()
         t2 = time.perf_counter()
         end.synchronize()
@@ -1518,7 +1518,7 @@ def full_width_paths(torch, dev, smi, paths, launches_by_path, alt):
                               for g, b in banks.items()},
                       each_block(**per_block), bank.block, FS)
         if label == "usb":
-            alt[label]["output_clone"] = output_clone_cost(torch, smi, bank.step)
+            alt[label]["output_clone"] = output_clone_cost(torch, smi, bank.program.step)
         out_bytes = bank.channel_block * int(rate) // int(bank.channel_rate) // 2
         sq_stage = bank.chain.selector.squelch
         windows = sq_stage.block // sq_stage.window
@@ -1596,7 +1596,7 @@ def full_width_paths(torch, dev, smi, paths, launches_by_path, alt):
             return wf.dispatch(x), lbank.dispatch(x), ebank.feed_dispatch(x)
 
         def fetch(w, lb, eb):
-            return wf.fetch(*w), lbank.fetch(*lb), ebank.program.fetch(*eb)
+            return wf.fetch(*w), lbank.fetch(*lb), ebank.fetch(*eb)
         return PipeSide(blocks, dispatch, fetch, [wf, lbank, ebank]), wf, slots
     blocks = seeded_blocks(torch, gen, dev, CFG2_FS, 120000, total,
                            [CFG2_LISTENER, CFG2_EDGE], "usb", noise=0.05)
@@ -1758,7 +1758,7 @@ def full_width_paths(torch, dev, smi, paths, launches_by_path, alt):
           f"config #3: dials in {sorted({h.bucket_key for h in rt3.handles})}, "
           f"stride {bank3.delivery_stride}")
     run("cfg3", sides, each_block(fold=1, agc_=1, squelch_=1), rt3.block, RT_FS,
-        compare=frames_same, step_blocks=lambda s: [(bank3.step, s.blocks)])
+        compare=frames_same, step_blocks=lambda s: [(bank3.program.step, s.blocks)])
     errors.check("cfg3")
     check(all(audio3.values()), "cfg3: audio missing on some dials")
     for i in tone3:
@@ -1793,7 +1793,7 @@ def full_width_paths(torch, dev, smi, paths, launches_by_path, alt):
                                   agc_=side.blocks + full, squelch_=side.blocks + full)
 
     def cfg6_steps(side):
-        return [(side.rt.banks["pfbi:ssb"].step, side.blocks),
+        return [(side.rt.banks["pfbi:ssb"].program.step, side.blocks),
                 (side.rt.banks["ssb"].program.step, side.churn.counts["full_rate_blocks"])]
     run("cfg6", sides, cfg6_expect, rt6.block, RT_FS, warm=CFG6_WARM, order=CFG6_ORDER,
         compare=frames_same, step_blocks=cfg6_steps)
@@ -1840,7 +1840,7 @@ def full_width_paths(torch, dev, smi, paths, launches_by_path, alt):
         return out
     run("threaded", sides, each_block(fold=1, adpcm_=1, agc_=1, squelch_=1, seq=1),
         rtt.block, RT_FS, compare=prefix_same,
-        step_blocks=lambda s: [(s.rt.banks["pfbi:ssb"].step, s.blocks),
+        step_blocks=lambda s: [(s.rt.banks["pfbi:ssb"].program.step, s.blocks),
                                (s.rt.fft_program.step, s.blocks)])
     errors.check("threaded")
     blocks_t = sides[True].blocks

@@ -137,20 +137,18 @@ class DistributedReceiver:
     def refresh_params(self):
         """Slice the bank's chain params for this rank after a retune
         (assign/release/bandpass); cached between blocks."""
-        # bank._params() pushes any dirty control arrays into the chain
-        # before materializing; dense banks: the slot indices are unused
-        _idx, chain_params = self.bank._params()
+        # dense banks: the slot indices are unused
+        _idx, chain_params = self.bank.program.current_params()
         self._params = self._params_of(chain_params)
         return self._params
 
     def _params_stale(self) -> bool:
-        """The bank marks its dirty flag on every control change, so the
-        per-block cost is one read under its lock.  The bank must not be
-        dispatched directly while a DistributedReceiver owns it: its
-        ``_params()`` would clear the flag without this rank's slice being
-        rebuilt."""
-        with self.bank._lock:
-            return self._params is None or self.bank._params_dirty
+        """Every control change of the bank moves its program's params
+        version, so the per-block cost is one read of its params epoch.
+        The bank must not be dispatched directly while a DistributedReceiver
+        owns it: its dispatch would rebuild the program's params, ending
+        the wait, without this rank's slice being rebuilt."""
+        return self._params is None or self.bank.program.params_epoch()[1]
 
     def dispatch_local(self, x_local):
         """Step the bank with this rank's slab ((slab,) complex64, or packed

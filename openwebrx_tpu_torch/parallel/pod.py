@@ -15,7 +15,7 @@ import torch
 
 from openwebrx_tpu_torch.parallel.mesh import AxisComm
 from openwebrx_tpu_torch.parallel.pfb import sharded_channelize
-from openwebrx_tpu_torch.runtime.chain import tree_map
+from openwebrx_tpu_torch.runtime.chain import as_input_block, tree_map
 
 
 def channel_slice(tree, m: int, lo: int, hi: int):
@@ -67,8 +67,8 @@ def shard_channelized_bank(bank, mesh, chan_axis: str = "chan"):
     ``run(state, x) -> (state, y, aux)`` takes the whole block (as the
     reference's does), steps this rank's time slice, and returns this
     rank's channels' ``y`` and ``aux`` as device tensors
-    (``gather_channels`` collects them).  Params come from
-    ``bank._params()`` on each call, sliced for the rank.
+    (``gather_channels`` collects them).  Params come from the bank's
+    program (``Program.current_params``) on each call, sliced for the rank.
     """
     step, state, params_of, _ = sharded_bank_step(bank, mesh, chan_axis)
     comm = AxisComm(mesh, chan_axis)
@@ -76,8 +76,8 @@ def shard_channelized_bank(bank, mesh, chan_axis: str = "chan"):
     lo = comm.index * slab
 
     def run(state, x):
-        x = bank._as_block(x)[lo:lo + slab]
-        _idx, chain_params = bank._params()     # dense: slot indices unused
+        x = as_input_block(x, bank.block, True, bank.device)[lo:lo + slab]
+        _idx, chain_params = bank.program.current_params()  # dense: slot indices unused
         return step(state, params_of(chain_params), x)
 
     return run, state

@@ -18,8 +18,8 @@ Stage lifecycle:
 State trees have the same structure as the reference's, so a reference
 bank's state can be carried over (``openwebrx_tpu_torch/from_jax.py``).
 Params are versioned: every live setter bumps its stage's version, and a
-bank or Program rebuilds (and uploads) its params only when the chain's
-aggregate version changed.
+Program (so every bank, each of which steps through one) rebuilds (and
+uploads) its params only when the chain's aggregate version changed.
 
 The reference compiles a Program's block step once (``jax.jit`` with the
 state donated); here ``GraphStep`` is its counterpart.  The step is a
@@ -603,7 +603,7 @@ class Program:
     def state(self, state):
         self.step.set_state(state)
 
-    def _params(self):
+    def current_params(self):
         """Current params, rebuilt only when a setter bumped the chain's
         params version."""
         with self.params_lock:
@@ -645,7 +645,7 @@ class Program:
         waits for them."""
         xt = as_input_block(x, self.block, self._in_complex, self.device)
         with self.params_lock:
-            self.step.set_params(self._params())
+            self.step.set_params(self.current_params())
         y, aux = self.step(xt, own=not to_host)
         return start_fetch(y, aux, self.device, to_host), None
 

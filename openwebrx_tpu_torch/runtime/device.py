@@ -130,6 +130,22 @@ BANK_BUCKET = {
 BUCKET_CHAIN_MODE = {"nfm": "nfm", "am": "am", "sam": "sam", "wfm": "wfm",
                      "ssb": "usb", "rawam": "rawam", "usbd": "usbd"}
 
+
+def bank_key(bucket: str, filterbank: bool = False, service: bool = False) -> str:
+    """A bucket's bank's key (``DeviceRuntime.banks``, ``bucket_key``): a
+    ``ChannelizedBank`` ('pfbi:', 'pfb:') when ``filterbank``, else a
+    ``ChannelBank`` ('', 'svc:'); raw audio when ``service``, else the
+    client codec."""
+    prefix = ("pfb:" if service else "pfbi:") if filterbank else ("svc:" if service else "")
+    return prefix + bucket
+
+
+def bank_kind(key: str) -> tuple[str, bool, bool]:
+    """``bank_key``'s inverse → (bucket, filterbank, service)."""
+    prefix, _, bucket = key.rpartition(":")
+    return bucket, prefix in ("pfb", "pfbi"), prefix in ("svc", "pfb")
+
+
 # The host objects the runtime uses, each with the module (of the port, and
 # of the reference package under the same name) that defines it
 HOST_NAMES = {
@@ -291,6 +307,10 @@ class SecondaryBank:
         self.members = self.members + [None] * self.capacity
         self.capacity = new_cap
         self._build_program()
+
+    @property
+    def n_active(self) -> int:
+        return int(self._active.sum())
 
     def set_offset(self, slot: int, offset_hz: float):
         self._offsets[slot] = offset_hz
@@ -879,7 +899,7 @@ class ChannelHandle:
     def set_offset(self, offset_hz: float):
         if self.slot is None:
             return
-        if self.bucket_key.startswith(("pfb:", "pfbi:")):
+        if bank_kind(self.bucket_key)[1]:
             # the new dial may not fit its PFB channel or may collide with
             # another dial's: the runtime re-fits, migrating if needed
             self.runtime.retune_channelized(self, offset_hz)
@@ -888,9 +908,7 @@ class ChannelHandle:
         # re-admitted (with hysteresis)
         if self.runtime.try_pfb_readmit(self, offset_hz):
             return
-        new_slot = self.bank.retune(self.slot, offset_hz)
-        if new_slot is not None:
-            self.slot = new_slot
+        self.slot = self.bank.retune(self.slot, offset_hz)
 
     @_control
     def set_squelch(self, level_db: float):
@@ -968,8 +986,6 @@ class DeviceRuntime:
                            "samples_per_s": 0.0, "realtime_factor": 0.0}
             self._gauges = None               # their registry entries, once the loop runs
             self._n_dispatch = 0              # blocks dispatched: the next block's number
-            # id(dispatched block) → (its number, its dispatch's start and end)
-            self._inflight: dict[int, tuple] = {}
             self._cause = -1                  # the loop's last read (its span id)
             self._change_ids = itertools.count()
             # changes whose bank's step has not yet run with them:
@@ -1015,8 +1031,7 @@ class DeviceRuntime:
         with self._lock:
             bank = self.banks.get(key)
             if bank is None:
-                service = key.startswith("svc:")
-                bucket = key.split(":", 1)[-1]
+                bucket, _, service = bank_kind(key)
                 # WFM listeners get HD audio (48 kHz)
                 audio_rate = 48000.0 if bucket == "wfm" else self.audio_rate
                 with self.spans["bank"]():
@@ -1063,7 +1078,7 @@ class DeviceRuntime:
         from ONE polyphase filterbank at channel rate.  Two banks per
         bucket: 'pfb:' (services, raw audio, delivery batches) and 'pfbi:'
         (interactive listeners, client codec, every block)."""
-        key = ("pfbi:" if interactive else "pfb:") + bucket
+        key = bank_key(bucket, filterbank=True, service=not interactive)
         with self._lock:
             bank = self.banks.get(key)
             if bank is None:
@@ -1122,7 +1137,7 @@ class DeviceRuntime:
             return None
         slot = bank.assign(offset_hz)
         bank.set_bandpass(slot, lo, hi)
-        return ("pfbi:" if interactive else "pfb:") + bucket, slot
+        return bank_key(bucket, filterbank=True, service=not interactive), slot
 
     @_control
     def open_channel(self, mode: str, offset_hz: float = 0.0,
@@ -1152,7 +1167,7 @@ class DeviceRuntime:
             with self._lock:
                 self.handles.append(handle)
             return handle
-        key = f"svc:{bucket}" if service else bucket
+        key = bank_key(bucket, service=service)
         bank = self._get_bank(key)
         slot = bank.add_channel(offset_hz)
         bank.set_bandpass(slot, lo, hi)
@@ -1168,23 +1183,16 @@ class DeviceRuntime:
         a full-rate slot (interactive handles to their bucket's listener
         bank, services to 'svc:')."""
         with self._lock:
-            interactive = handle.bucket_key.startswith("pfbi:")
             bank = self.banks[handle.bucket_key]
-            lo, hi = float(bank._low[handle.slot]), float(bank._high[handle.slot])
-            k, _ = bank.channel_for(offset_hz)
-            own = (bank.capacity is not None
-                   or int(bank._chan[handle.slot]) == k)
-            if bank.fits(offset_hz, lo, hi) and (own or
-                                                 not bank.channel_in_use(k)):
+            if bank.can_retune(handle.slot, offset_hz):
                 handle.slot = bank.retune(handle.slot, offset_hz)
                 return
             # migrate to the full-rate bank, keeping controls
-            sq = float(bank._squelch[handle.slot])
-            nr = float(bank._nr[handle.slot])
+            lo, hi, sq, nr = bank.controls(handle.slot)
             bank.remove_channel(handle.slot)
             handle.slot = None            # inert if the reopen fails
-            bucket = handle.bucket_key.split(":", 1)[-1]
-            new_key = bucket if interactive else f"svc:{bucket}"
+            bucket, _, service = bank_kind(handle.bucket_key)
+            new_key = bank_key(bucket, service=service)
             new_bank = self._get_bank(new_key)
             slot = new_bank.add_channel(offset_hz, squelch_db=sq)
             new_bank.set_bandpass(slot, lo, hi)
@@ -1194,9 +1202,6 @@ class DeviceRuntime:
             # the new slot's codec state starts fresh: resync the framer
             handle.framer = SyncFramer()
 
-    # the reference's older name
-    retune_service = retune_channelized
-
     def try_pfb_readmit(self, handle: ChannelHandle,
                         offset_hz: float) -> bool:
         """A full-rate handle retuning to a dial that fits the filterbank
@@ -1204,23 +1209,18 @@ class DeviceRuntime:
         hysteresis: a drag oscillating across a channel edge must not
         thrash between banks."""
         with self._lock:
-            old_key = handle.bucket_key
-            if handle.slot is None or old_key.startswith(("pfb:", "pfbi:")):
+            bucket, filterbank, service = bank_kind(handle.bucket_key)
+            if handle.slot is None or filterbank:
                 return False
-            interactive = not old_key.startswith("svc:")
-            bucket = old_key.split(":", 1)[-1]
-            bank = self.banks[old_key]
-            lo = float(bank._low[handle.slot])
-            hi = float(bank._high[handle.slot])
+            bank = self.banks[handle.bucket_key]
+            lo, hi, sq, nr = bank.controls(handle.slot)
             try:
                 routed = self._pfb_route(bucket, offset_hz, lo, hi,
-                                         interactive, margin=0.35)
+                                         not service, margin=0.35)
             except (ValueError, KeyError):
                 return False
             if routed is None:
                 return False
-            sq = float(bank._squelch[handle.slot])
-            nr = float(bank._nr[handle.slot])
             bank.remove_channel(handle.slot)
             key, slot = routed
             new_bank = self.banks[key]
@@ -1243,7 +1243,7 @@ class DeviceRuntime:
             try:
                 return SecondaryHandle(self, mode, offset_hz, bank)
             except LookupError:
-                if not bank._active.any():
+                if not bank.n_active:
                     self._drop_secondary_bank(bank)
                 raise
 
@@ -1282,24 +1282,15 @@ class DeviceRuntime:
     @_control
     def switch_mode(self, handle: ChannelHandle, mode: str,
                     offset_hz: float | None = None):
-        is_pfb = handle.bucket_key.startswith(("pfb:", "pfbi:"))
-        service = handle.bucket_key.startswith(("svc:", "pfb:"))
+        _, is_pfb, service = bank_kind(handle.bucket_key)
         new_bucket = BANK_BUCKET[mode]
-        new_key = f"svc:{new_bucket}" if service else new_bucket
+        new_key = bank_key(new_bucket, service=service)
         if new_bucket not in self.available_buckets:
             raise KeyError(f"mode {mode} not available at "
                            f"{self.in_rate:.0f} S/s")
         with self._lock:
             bank = self.banks[handle.bucket_key]
-            if offset_hz is not None:
-                offset = offset_hz
-            elif is_pfb:
-                # dial = the slot's channel centre + fine offset
-                k = int(bank._chan[handle.slot])
-                offset = float(channel_frequencies(bank.m, bank.in_rate)[k]
-                               + bank._fine[handle.slot])
-            else:
-                offset = float(bank._offsets[handle.slot])
+            offset = bank.dial_hz(handle.slot) if offset_hz is None else offset_hz
             if new_key == handle.bucket_key and not is_pfb:
                 handle.mode = mode
                 lo, hi = MODE_BANDPASS[mode]
@@ -1427,13 +1418,11 @@ class DeviceRuntime:
         ends, caused by the read (span id) ``cause``; it completes inside a
         ``complete`` span; the gauges take its own time, its dispatch and
         its completion."""
-        b, t0, t1 = self._inflight.pop(id(pending), (-1, None, None))
-        if t1 is not None:
-            self.spans["hold"].record(t1, time.perf_counter(), b, cause)
+        b, (t0, t1) = pending["block"], pending["dispatched"]
+        self.spans["hold"].record(t1, time.perf_counter(), b, cause)
         with self.spans["complete"](rid=b, parent=-1) as span:
             self._complete_block(pending)
-        if t1 is not None:
-            self._gauge(t1 - t0 + span.t1 - span.t0)
+        self._gauge(t1 - t0 + span.t1 - span.t0)
 
     def _gauge(self, seconds: float):
         """The gauges after a block that took ``seconds`` of its own."""
@@ -1468,6 +1457,10 @@ class DeviceRuntime:
             return as_input_block(x, self.block, True, self.device)
 
     def _dispatch_block(self, block) -> dict:
+        """Dispatch one block → what ``_finish`` completes: the banks and
+        handles it ran, the waterfall's and each bank's pending results,
+        the block's number (``block``) and its dispatch's start and end
+        (``dispatched``)."""
         n = self._n_dispatch
         self._n_dispatch += 1
         with self.spans["dispatch"](rid=n, parent=-1) as span:
@@ -1483,11 +1476,9 @@ class DeviceRuntime:
                            if want_fft else [])
             bank_pending = {}
             for key, bank in banks.items():
-                pend = bank.feed_dispatch(xdev, to_host=False)
-                if pend is None:      # a long-chain bank still accumulating
-                    continue
-                # a delivery-stride batch is (list of K pendings, K)
-                bank_pending[key] = pend[0] if isinstance(pend[1], int) else [pend[0]]
+                due = bank.feed_dispatch(xdev, to_host=False)
+                if due:       # else a bank still accumulating
+                    bank_pending[key] = due
             self._settle(n, span.t0, banks)
             # every result of this block starts its copy behind ONE event
             fetched = iter(start_fetches(
@@ -1503,11 +1494,9 @@ class DeviceRuntime:
                     sec.feed(xdev)
                 except Exception:
                     logger.exception("secondary %s failed", sec.mode)
-            out = {"banks": banks, "handles": handles,
+            out = {"banks": banks, "handles": handles, "block": n,
                    "fft_pending": fft_pending, "bank_pending": bank_pending}
-        self._inflight[id(out)] = (n, span.t0, span.t1)
-        if len(self._inflight) > 64:        # blocks dispatched and completed elsewhere
-            del self._inflight[next(iter(self._inflight))]
+        out["dispatched"] = (span.t0, span.t1)
         return out
 
     def _changed(self, span, handle: ChannelHandle):
@@ -1516,7 +1505,7 @@ class DeviceRuntime:
         bank = self.banks.get(handle.bucket_key) if handle.slot is not None else None
         if bank is None:
             return
-        rebuilds, waiting = bank.params_epoch()
+        rebuilds, waiting = bank.program.params_epoch()
         # not waiting: the step of a dispatch already begun took it
         at = -1 if waiting or not self._n_dispatch else self._n_dispatch - 1
         with self._changes_lock:
@@ -1537,7 +1526,7 @@ class DeviceRuntime:
                 cid, sid, returned, bank, rebuilds, at = change
                 if at >= 0:
                     apply.record(returned, returned, cid, sid, at)
-                elif bank.params_rebuilds >= rebuilds:
+                elif bank.program.params_rebuilds >= rebuilds:
                     apply.record(returned, max(returned, t0), cid, sid, b)
                 elif returned >= t0 or any(bank is x for x in active.values()):
                     waiting.append(change)
@@ -1598,7 +1587,7 @@ class DeviceRuntime:
                                                    stride_states[handle.slot])
                     else:
                         wire = y[handle.slot].tobytes()
-                    handle.audio_cb(wire, handle.bucket_key.endswith("wfm"))
+                    handle.audio_cb(wire, bank_kind(handle.bucket_key)[0] == "wfm")
                 if handle.smeter_cb is not None and power is not None:
                     # 4 reports/s from 16 measurements/s
                     self._emit_smeter(handle, power[handle.slot])
@@ -1732,8 +1721,7 @@ def warm_up(runtime: DeviceRuntime) -> list[WarmProgram]:
                     handle.smeter_cb = lambda level: None
         runtime.subscribe_waterfall(lambda payload: None)
         programs = warm_programs(runtime)
-        blocks = max([bank.chunk_ratio * getattr(bank, "delivery_stride", 1)
-                      for bank in runtime.banks.values()]
+        blocks = max([bank.blocks_per_delivery for bank in runtime.banks.values()]
                      + [-(-p.program.block // runtime.block) for p in programs])
         silence = np.zeros(runtime.block, np.complex64)
         xdev = runtime._upload(silence)

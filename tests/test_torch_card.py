@@ -632,7 +632,7 @@ class TestGraphStepOnCard:
     def test_bank_replay_is_the_eager_step(self, cuda_device, no_plain, mode):
         def scene(graph):
             out, _, bank = gs.run_bank_scene(mode, cuda_device, graph)
-            return out, [bank.step.captures]
+            return out, [bank.program.step.captures]
         runs = _replay_and_eager(scene)
         kernels_run = {"fold.cu", "squelch.cu"} | (
             {"iir.cu"} if mode in ("nfm", "am", "wfm") else set()) | (
@@ -656,9 +656,11 @@ class TestGraphStepOnCard:
         count says."""
         if path == "waterfall":
             step_of, fs, dials = gs.make_waterfall(cuda_device), gs.WF_FS, (300000.0,)
+            step = step_of.step
         else:
             step_of, _ = gs.make_bank(path, cuda_device)
             fs, dials = gs.BANK_MODES[path][0], gs.BANK_MODES[path][4]
+            step = step_of.program.step
         blocks = [gs.on(cuda_device, x) for x in gs.bank_blocks(
             "usb" if path == "waterfall" else path, fs, dials, step_of.block, 6, seed=4)]
         for x in blocks[:2]:            # the eager block; the capture, replayed
@@ -666,7 +668,7 @@ class TestGraphStepOnCard:
         gs.zero_launches()
         _, _, ran = gs.traced(lambda: [step_of.process(x) for x in blocks[2:]])
         counted = gs.launch_counts()
-        assert step_of.step.captures == 1 and step_of.step.replays == 5
+        assert step.captures == 1 and step.replays == 5
         assert ran == counted, (ran, counted)
         assert sum(counted.values()) >= 4, counted
 
@@ -691,7 +693,7 @@ class TestGraphStepOnCard:
             assert rec["parent"][0] >> CODE_BITS == dispatch["seq"][block] - 1
             assert dispatch["start"][block] <= rec["start"][0] <= rec["end"][0] \
                 <= dispatch["end"][block]
-        metric, sid = step_of.step.capture_span
+        metric, sid = step_of.program.step.capture_span
         assert metric is log["capture"] and metric.seconds(sid) > 0
 
     @pytest.mark.cuda
@@ -705,7 +707,7 @@ class TestGraphStepOnCard:
         import weakref
         from openwebrx_tpu_torch.runtime.chain import GraphStep
         _, _, old = gs.run_bank_scene("usb", cuda_device, True, events={}, nblocks=3)
-        assert old.step.captures == 1
+        assert old.program.step.captures == 1
         old.cycle = old                   # only the cyclic collector frees it
         holder, freed = [old], weakref.ref(old)
         del old
@@ -725,14 +727,15 @@ class TestGraphStepOnCard:
         monkeypatch.setattr(GraphStep, "_body", collecting_body)
         out, _, bank = gs.run_bank_scene("usb", cuda_device, True, events={}, nblocks=3)
         torch.cuda.synchronize()
-        assert bank.step.captures == 1 and bank.step.replays == 2 and not holder
+        step = bank.program.step
+        assert step.captures == 1 and step.replays == 2 and not holder
         gc.collect()
         assert freed() is None
 
     @pytest.mark.cuda
     def test_stride_batch_replay_is_the_eager_step(self, cuda_device, no_plain):
         runs = _replay_and_eager(lambda graph: (lambda got, want, bank: (
-            got, [bank.step.captures]))(*gs.run_stride_scene(cuda_device, graph)))
+            got, [bank.program.step.captures]))(*gs.run_stride_scene(cuda_device, graph)))
         _assert_replay_is_eager(runs, [1], {"fold.cu", "agc.cu", "squelch.cu"})
         got = runs[True][0]
         assert len(got) == 6
@@ -793,7 +796,7 @@ class TestGraphStepOnCard:
                     rt._process_block((rng.standard_normal((rt.block, 2)) * 0.05
                                        ).astype(np.float32))
             banks = [rt.banks[k] for k in sorted(rt.banks)]
-            steps = [getattr(b, "step", None) or b.program.step for b in banks]
+            steps = [b.program.step for b in banks]
             steps.append(rt.fft_program.step)
             return ([(np.frombuffer(str(k).encode(), np.uint8), np.frombuffer(v, np.uint8))
                      for k, v in got], [st.captures for st in steps])

@@ -20,6 +20,7 @@ from openwebrx_tpu.ops import adpcm as jadpcm
 from openwebrx_tpu.runtime.chain import _unpack_leaf
 from openwebrx_tpu.runtime.channelized import ChannelizedBank as JaxBank
 from openwebrx_tpu_torch.from_jax import bank_state_from_numpy
+from openwebrx_tpu_torch.runtime.bank import ChannelBank
 from openwebrx_tpu_torch.runtime.channelized import ChannelizedBank
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -198,22 +199,21 @@ class TestPortBank:
 
     def test_streaming_surface(self):
         """feed_dispatch with a device chunk of half the bank block and
-        delivery batching returns what process() returns."""
+        delivery batching returns what process() returns: nothing until
+        the fourth chunk, then both bank blocks, in order."""
         kw = dict(mode="usb", compression="adpcm", device="cpu")
         ref = ChannelizedBank(FS, M, target_seconds=0.05, **kw)
         bank = ChannelizedBank(FS, M, block=ref.block // 2, delivery_stride=2, **kw)
         assert bank.block == ref.block and bank.chunk_ratio == 2
+        assert bank.blocks_per_delivery == 4
         for b in (ref, bank):
             b.assign(250000.0)
         blocks = _iq(ref.block, 2, seed=3)
         want = [ref.process(b) for b in blocks]
-        got = None
-        for blk in blocks:
-            for half in np.split(bank.pack_input(blk), 2):
-                r = bank.feed_dispatch(half)
-                if r is not None:
-                    got = bank.fetch_many(*r)
-        assert got is not None and len(got) == 2
+        fed = [bank.feed_dispatch(half) for blk in blocks
+               for half in np.split(bank.program.pack_input(blk), 2)]
+        assert [len(due) for due in fed] == [0, 0, 0, 2]
+        got = [bank.fetch(p) for p in fed[-1]]
         for (yg, ag), (yw, aw) in zip(got, want):
             for a, b in zip(yg, yw):
                 np.testing.assert_array_equal(a, b)
@@ -342,19 +342,32 @@ def _leaves(tree):
     return [tree]
 
 
-class TestControlsFromAnotherThread:
-    def test_no_control_change_is_lost(self):
-        """A listener's controls change on the server's thread while the
-        device loop rebuilds the bank's params for a dispatch.  In each of
-        40 rounds four rebuilding threads run against one setter, with the
-        interpreter switching threads every microsecond; once they stop,
-        the params in use must equal params rebuilt from the controls (a
-        change made during a rebuild would otherwise be lost until the
-        next change)."""
-        import torch
+def _race_bank(kind):
+    """A bank of ``kind`` with four listeners on four filterbank channels →
+    (bank, slots)."""
+    if kind == "channelized":
         bank = ChannelizedBank(FS, M, mode="usb", capacity=4, target_seconds=0.05,
                                device="cpu")
-        slots = [bank.assign(k * FS / M + 500.0) for k in range(1, 5)]
+        return bank, [bank.assign(k * FS / M + 500.0) for k in range(1, 5)]
+    bank = ChannelBank(FS, mode="usb", capacity=4, compression="none",
+                       target_seconds=0.05, device="cpu")
+    return bank, [bank.add_channel(k * FS / M + 500.0) for k in range(1, 5)]
+
+
+class TestControlsFromAnotherThread:
+    @pytest.mark.parametrize("kind", ["channelized", "full-rate"])
+    def test_no_control_change_is_lost(self, kind):
+        """A listener's controls change on the server's thread while the
+        device loop rebuilds the bank's params for a dispatch
+        (``Program.current_params``).  In each of 40 rounds four
+        rebuilding threads run against one setter, with the interpreter
+        switching threads every microsecond; once they stop, the params in
+        use must equal params built afresh from the chain's controls, and
+        no change may still wait (a change made during a rebuild would
+        otherwise be lost until the next change)."""
+        import torch
+        bank, slots = _race_bank(kind)
+        program = bank.program
         old = sys.getswitchinterval()
         stale = 0
         for rnd in range(40):
@@ -362,7 +375,7 @@ class TestControlsFromAnotherThread:
 
             def rebuild():
                 while not stop.is_set():
-                    bank._params()
+                    program.current_params()
 
             threads = [threading.Thread(target=rebuild) for _ in range(4)]
             sys.setswitchinterval(1e-6)
@@ -379,9 +392,9 @@ class TestControlsFromAnotherThread:
                     th.join(timeout=30)
                 sys.setswitchinterval(old)
             assert not any(th.is_alive() for th in threads)
-            in_use = _leaves(bank._params())
-            bank._params_dirty = True
-            fresh = _leaves(bank._params())
+            in_use = _leaves(program.current_params())
+            with program.params_lock:
+                fresh = _leaves(program.chain.params(program.device))
             assert len(in_use) == len(fresh)
             stale += not all(
                 torch.equal(a, b) if isinstance(a, torch.Tensor)
@@ -428,6 +441,34 @@ class TestGuards:
                     root = n.split(".")[0]
                     if root in ("jax", "jaxlib", "openwebrx_tpu"):
                         bad.append(f"{f.relative_to(REPO)}: {n}")
+        assert not bad, bad
+
+    def test_runtime_reads_no_private_field_of_a_bank(self):
+        """runtime/device.py and parallel/*.py reach a bank only through its
+        public surface: no attribute they read, other than through
+        ``self``, names a ``_``-prefixed field or method of a channel bank,
+        a SecondaryBank or a Program (an AST scan)."""
+        import types
+
+        from openwebrx_tpu_torch.runtime import device as rtdev
+        runtime = types.SimpleNamespace(in_rate=48000.0, device="cpu", host=None)
+        objs = [ChannelizedBank(FS, M, capacity=2, target_seconds=0.05, device="cpu"),
+                ChannelizedBank(FS, M, target_seconds=0.05, device="cpu"),
+                ChannelBank(FS, mode="usb", capacity=2, device="cpu"),
+                rtdev.SecondaryBank(runtime, "bpsk31")]
+        objs.append(objs[2].program)
+        private = {n for o in objs for n in [*vars(o), *dir(type(o))]
+                   if n.startswith("_") and not n.startswith("__")}
+        assert {"_active", "_chan", "_low", "_raw_step", "_params_ver"} <= private
+        files = [REPO / "openwebrx_tpu_torch" / "runtime" / "device.py",
+                 *sorted((REPO / "openwebrx_tpu_torch" / "parallel").glob("*.py"))]
+        bad = []
+        for f in files:
+            for node in ast.walk(ast.parse(f.read_text())):
+                if (isinstance(node, ast.Attribute) and node.attr in private
+                        and not (isinstance(node.value, ast.Name)
+                                 and node.value.id == "self")):
+                    bad.append(f"{f.relative_to(REPO)}:{node.lineno} .{node.attr}")
         assert not bad, bad
 
     def test_bank_default_device_needs_a_card(self):

@@ -472,11 +472,13 @@ class TestParityWithJax:
                      StreamSpec(Format.COMPLEX_FLOAT, RATE), rt.block, device=CPU)
         nb = wf.chain.waterfall.wire_bytes_per_row
         for b in blocks:
+            # each bank's feed: a result per block, the service bank's six at once
             for key, bank in (("pfbi", pfbi), ("full", full)):
-                (data, strides), _ = bank.process(b)
+                (data, strides), _ = bank.fetch(*bank.feed_dispatch(b))
                 want[key].append(framers[key].frame(data[slots[key]], strides[slots[key]]))
-            y, _ = pfb.process(b)
-            want["pfb"].append(y[slots["pfb"]].tobytes())
+            for p in pfb.feed_dispatch(b):
+                y, _ = pfb.fetch(p)
+                want["pfb"].append(y[slots["pfb"]].tobytes())
             rows, _ = wf.process(b)
             want["wf"] += [r[:nb].tobytes() for r in rows]
         assert len(got["pfb"]) == 6 and len(got["wf"]) == 6

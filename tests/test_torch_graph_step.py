@@ -268,7 +268,7 @@ def _setter_cases():
                 state = (bank.state[0].clone(), bank.chain.init_state((bank._n,), "cpu"))
                 _, y, aux = bank._raw_step(state, params, torch.from_numpy(blk))
                 return y, aux
-            return objs[0], objs[1], run, lambda b: b._params()
+            return objs[0], objs[1], run, lambda b: b.program.current_params()
         return build
 
     def full_rate_case(setter):
@@ -282,7 +282,7 @@ def _setter_cases():
              "bandpass": lambda b: b.set_bandpass(0, 500.0, 1800.0),
              "nr": lambda b: b.set_nr(0, -10.0)}[setter](objs[1])
             return (objs[0].program, objs[1].program, _program_run(x),
-                    lambda p: p._params())
+                    lambda p: p.current_params())
         return build
 
     def secondary_case(setter):
@@ -295,7 +295,7 @@ def _setter_cases():
             {"offset": lambda b: b.set_offset(0, 1200.0),
              "carrier": lambda b: b.set_carrier(0, 20.0)}[setter](objs[1])
             return (objs[0].program, objs[1].program, _program_run(x),
-                    lambda p: p._params())
+                    lambda p: p.current_params())
         return build
 
     def chain_case(make):
@@ -307,7 +307,7 @@ def _setter_cases():
                 progs.append(Program(chain, spec, plan_block_size(chain, spec, 0.1),
                                      device="cpu"))
             progs[1].chain.set_frequency_offset(7000.0)
-            return progs[0], progs[1], _program_run(x), lambda p: p._params()
+            return progs[0], progs[1], _program_run(x), lambda p: p.current_params()
         return build
 
     cases = [(f"channelized-{s}", bank_case(s)) for s in ("retune", "squelch", "bandpass", "nr")]

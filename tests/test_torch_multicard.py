@@ -90,7 +90,7 @@ def worker_chansharding(rank, world, inp, dev):
     n, per = bank.capacity, bank.capacity // world
     lo, hi = rank * per, (rank + 1) * per
     chain = bank.chain
-    params = channel_slice(bank.program._params(), n, lo, hi)
+    params = channel_slice(bank.program.current_params(), n, lo, hi)
     state = channel_slice(chain.init_state((n,), dev), n, lo, hi)
     _, y, _ = chain.apply(state, params, _cplx(inp["x"], dev))
     return {"y": gather_channels(y, mesh).cpu().numpy()}

@@ -116,7 +116,7 @@ def worker_chansharding(rank, world, inp):
     for off in inp["offsets"]:
         bank.add_channel(float(off))
     chain = bank.chain
-    params = channel_slice(bank.program._params(), world, rank, rank + 1)
+    params = channel_slice(bank.program.current_params(), world, rank, rank + 1)
     init = chain.init_state((world,), bank.device)
     leaves = iter(inp[k] for k in sorted(inp) if k.startswith("state_"))
     handed = tree_map(lambda _: torch.from_numpy(next(leaves)), init)

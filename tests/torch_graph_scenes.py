@@ -107,7 +107,8 @@ class PlainBank:
 
     def process(self, x):
         xt = as_input_block(x, self.bank.block, True, self.bank.device)
-        self.state, y, aux = self.bank._raw_step(self.state, self.bank._params(), xt)
+        self.state, y, aux = self.bank._raw_step(self.state,
+                                                 self.bank.program.current_params(), xt)
         return tree_map(lambda t: t.cpu().numpy(), (y, aux))
 
 
@@ -164,13 +165,13 @@ def run_stride_scene(device="cpu", graph=True, stride=6):
     bank, _ = make_bank("usb", device, graph, delivery_stride=stride)
     ref_bank, _ = make_bank("usb", device, graph=False)
     plain = PlainBank(ref_bank)
-    joined, want = None, []
+    due, want = [], []
     for x in bank_blocks("usb", FS, OFFSETS, bank.block, stride, seed=6):
         x = on(device, x)
         want.append(plain.process(x))
-        joined = bank.feed_dispatch(x, to_host=False)
-    pendings, n = joined
-    got = [finish_fetch(p) for p in start_fetches(pendings, bank.device)][:n]
+        due.append(bank.feed_dispatch(x, to_host=False))
+    assert [len(d) for d in due] == [0] * (stride - 1) + [stride]
+    got = [finish_fetch(p) for p in start_fetches(due[-1], bank.device)]
     return got, want, bank
 
 
